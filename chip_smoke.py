@@ -22,9 +22,26 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    that run and read just after; every field must equal the same run with the
    plain version on the card.  Then times the kernel's bare launch (input
    checks and output allocation done beforehand) and the plain version on the
-   full-width inputs with CUDA events and prints one JSON line for the kernels
-   and one for the engine.
-5. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   full-width inputs with CUDA events and prints one JSON line for the engine.
+5. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
+   its plain PyTorch version on the card at small shapes: causal and
+   bidirectional attention, windows, ``q_offset``, ragged lengths, GQA
+   G in {1, 4, 16}, head dims 16-256, float32 and bfloat16; scans of ragged
+   lengths on random inputs from a seed.
+6. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
+   published config (every layer, random weights from a seeded
+   ``torch.Generator`` on the card): 2 requests of 4096 prompt tokens, prefill,
+   then 16 greedy decode steps, through ``repro_torch.models.transformer``,
+   after one untimed warm-up prefill.  The kernels' launch counts are reset
+   just before the timed prefill and read just after (40 flash; 12 flash + 26
+   RG-LRU; 64 SSM).  The same requests then go
+   through the plain versions on the card (``impl="plain"``) and the
+   last-token logits are compared.  Each kernel is then held against its plain
+   version, and timed, on the full-width inputs of the first layer that called
+   it, beside its bound and (attention) ``scaled_dot_product_attention``.
+   Prints one ``{"serving": ...}`` line per model.
+7. Prints one ``{"kernels": [...]}`` line with the four kernels.
+8. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,9 +66,12 @@ SWEEP_OUTPUTS = ("done", "comp_time", "n_ckpt", "work_lost", "n_kills", "rec_exi
 #: sha256 of the FIELDS arrays of the JAX package's batch / jax engines on golden_study()
 GOLDEN_SHA256 = "deb6e6b79af47c3985bae6f24aca27db85bee815aee5629ea096f2aabd739cc4"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor float64 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor float64 and float32
+# rates, dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
+F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # float64 operations of one step, counted from csrc/spot_sweep.cu: a processed
 # period (entry, short test, fold), an HOUR/EDGE window, an ADAPT decision tick
 OPS_PER_PERIOD, OPS_PER_WINDOW, OPS_PER_TICK = 10, 12, 30
@@ -248,6 +269,410 @@ def sweep_bound(args, out) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+# ---------------------------------------------------------------------------
+# The model kernels: flash attention, RG-LRU scan, SSM scan
+# ---------------------------------------------------------------------------
+
+#: Kernel vs plain version, atol = rtol.  Attention: the JAX tests' own tolerances
+#: (tests/kernels/test_flash_attention.py:42): 2e-6 in float32 (both sum D products
+#: and a softmax over the same keys in float32, in other orders), 2e-2 in bfloat16
+#: (the kernel rounds P to bf16 for the PV product on the tensor cores, and both round
+#: the output to bf16: they differ by a few bf16 ulps).
+#: Scans: tests/kernels/test_scans.py's 1e-4 (h rounds the same in both; y_t's
+#: 16-term sum over n is a shuffle tree in the kernel, PyTorch's reduction in the
+#: plain version).
+ATTN_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+SCAN_TOL = 1e-4
+#: Last-token logits of the kernel path vs the plain path at full width (bf16):
+#: max |diff| <= LOGITS_TOL * (1 + max |plain logits|).  Each layer's bf16 output may
+#: differ by an ulp between the two paths (the kernels sum in other orders), and the
+#: differences pass through every later layer, so the bound is bf16's 2e-2 taken
+#: relative to the logits' scale rather than element by element.
+LOGITS_TOL = 2e-2
+
+#: The served models and the kernel launches one prefill makes.
+MODELS = (
+    ("glm4-9b", {"flash_attention": 40}),
+    ("recurrentgemma-9b", {"flash_attention": 12, "rglru_scan": 26}),
+    ("falcon-mamba-7b", {"ssm_scan": 64}),
+)
+BATCH, PROMPT, DECODE_STEPS = 2, 4096, 16
+MODEL_KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:107"),
+    "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/kernel.py:38"),
+    "ssm_scan": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan/kernel.py:49"),
+}
+
+#: Small attention cases: (B, Sq, Sk, KV, G, D, causal, window, q_offset), each in
+#: float32 and bfloat16.
+ATTN_CASES = (
+    (2, 200, 200, 2, 4, 64, True, 0, 0),  # causal GQA, ragged S (no multiple of a tile)
+    (2, 256, 256, 4, 1, 64, False, 0, 0),  # bidirectional, G = 1
+    (1, 300, 300, 1, 16, 128, True, 100, 0),  # window < S, G = 16, ragged
+    (1, 256, 256, 2, 4, 64, True, 64, 0),  # window == the kv tile (64)
+    (1, 96, 320, 2, 4, 32, True, 0, 224),  # q_offset > 0: suffix queries
+    (1, 64, 320, 1, 16, 256, True, 96, 256),  # q_offset with a window, D = 256
+    (2, 77, 77, 2, 2, 16, True, 0, 0),  # D = 16 (the smoke configs'), ragged
+    (1, 150, 150, 1, 16, 256, True, 0, 0),  # D = 256 causal, ragged
+)
+#: Small scan cases: SSM (B, S, D, N, C dtype) and RG-LRU (B, S, W); no S is a multiple
+#: of the steps a thread loads ahead (4 and 8).
+SSM_CASES = ((2, 77, 40, 16, "float32"), (1, 301, 24, 4, "bfloat16"), (2, 5, 8, 2, "float32"))
+RGLRU_CASES = ((2, 77, 96), (1, 1001, 130), (3, 9, 5))
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's launch wrapper (each keeps a ``launches`` count)."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru_scan import kernel as rglru
+    from repro_torch.kernels.spot_sweep import kernel as sweep
+    from repro_torch.kernels.ssm_scan import kernel as ssm
+
+    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm}
+
+
+def reset_launches() -> None:
+    for mod in kernel_wrappers().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: mod.launches for name, mod in kernel_wrappers().items()}
+
+
+def torch_dtype(name):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def check_close(got, want, tol, what) -> float:
+    """Fail unless ``got`` is finite and within atol = rtol = ``tol`` of ``want``;
+    return the max abs error."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs plain {want.dtype}{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs()
+    if not bool((err <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {float(err.max())} beyond atol = rtol = {tol}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def visible_pairs(sq, sk, causal, window, q_offset) -> int:
+    """The (q, k) pairs that attention scores: k <= q + q_offset if causal, k > q +
+    q_offset - window with a window."""
+    import numpy as np
+
+    qp = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qp, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_bound(q, k, causal, window, q_offset) -> tuple[float, str]:
+    """Least time for one attention: 4 * D tensor-core operations per visible (q, k)
+    pair and head (QK^T and PV) at the bf16 rate, or q, k, v read and o written once
+    at HBM bandwidth, whichever is larger."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    ops = 4 * D * visible_pairs(Sq, Sk, causal, window, q_offset) * B * H
+    nbytes = q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
+    ops_ms, bytes_ms = 1e3 * ops / BF16_TENSOR_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def scan_bound(name, args) -> tuple[float, str]:
+    """Least time for one scan: inputs read and outputs written once at HBM bandwidth,
+    or its float32 operations (8 per element for RG-LRU, 5 per state element for the
+    SSM scan) at the non-tensor float32 rate, whichever is larger."""
+    if name == "rglru_scan":
+        B, S, W = args[0].shape
+        nbytes, ops = 4 * (3 * B * S * W + B * W), 8 * B * S * W
+    else:
+        dtA, _, C = args
+        B, S, D, N = dtA.shape
+        nbytes = 4 * 2 * dtA.numel() + C.element_size() * C.numel() + 4 * (B * S * D + B * D * N)
+        ops = 5 * dtA.numel()
+    ops_ms, bytes_ms = 1e3 * ops / F32_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def model_kernel_modules():
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rglru_scan import kernel as rglru
+    from repro_torch.kernels.rglru_scan import ref as rglru_ref
+    from repro_torch.kernels.ssm_scan import kernel as ssm
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+
+    # name -> (wrapper module, its entry, the plain version)
+    return {
+        "flash_attention": (flash, flash.flash_attention, flash_ref.block_attention),
+        "rglru_scan": (rglru, rglru.rglru_scan, rglru_ref.rglru_scan),
+        "ssm_scan": (ssm, ssm.ssm_scan, ssm_ref.ssm_scan),
+    }
+
+
+def small_kernel_checks(device) -> dict[str, float]:
+    """Each model kernel against its plain version at small shapes, on the card; returns
+    the largest max abs error per kernel."""
+    import numpy as np
+    import torch
+
+    mods = model_kernel_modules()
+    rng = np.random.default_rng(0)
+    errs = dict.fromkeys(mods, 0.0)
+
+    def dev(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    _, flash, flash_plain = mods["flash_attention"]
+    for B, Sq, Sk, KV, G, D, causal, window, q_offset in ATTN_CASES:
+        qn = rng.standard_normal((B, Sq, KV * G, D))
+        kn, vn = rng.standard_normal((2, B, Sk, KV, D))
+        for dtype in ATTN_TOL:
+            q, k, v = (dev(x, torch_dtype(dtype)) for x in (qn, kn, vn))
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            got = flash(q, k, v, **kw)
+            want = flash_plain(q, k, v, q_block=64, kv_block=64, **kw)
+            torch.cuda.synchronize()
+            what = f"flash_attention B{B} Sq{Sq} Sk{Sk} KV{KV} G{G} D{D} causal={causal} window={window} q_offset={q_offset} {dtype}"
+            errs["flash_attention"] = max(errs["flash_attention"], check_close(got, want, ATTN_TOL[dtype], what))
+    print(f"small flash_attention: kernel == plain within tolerance on {2 * len(ATTN_CASES)} cases", flush=True)
+
+    _, ssm, ssm_plain = mods["ssm_scan"]
+    for B, S, D, N, c_dtype in SSM_CASES:
+        dtA = dev(-np.logaddexp(rng.standard_normal((B, S, D, N)), 0.0))
+        dBx = dev(rng.standard_normal((B, S, D, N)))
+        C = dev(rng.standard_normal((B, S, N)), torch_dtype(c_dtype))
+        got, want = ssm(dtA, dBx, C), ssm_plain(dtA, dBx, C)
+        torch.cuda.synchronize()
+        for g, w, out in zip(got, want, ("y", "h_last")):
+            errs["ssm_scan"] = max(errs["ssm_scan"], check_close(g, w, SCAN_TOL, f"ssm_scan {out} {(B, S, D, N, c_dtype)}"))
+    _, rglru, rglru_plain = mods["rglru_scan"]
+    for B, S, W in RGLRU_CASES:
+        log_a = dev(-np.logaddexp(rng.standard_normal((B, S, W)), 0.0))
+        gx = dev(rng.standard_normal((B, S, W)))
+        got, want = rglru(log_a, gx), rglru_plain(log_a, gx)
+        torch.cuda.synchronize()
+        for g, w, out in zip(got, want, ("h", "h_last")):
+            errs["rglru_scan"] = max(errs["rglru_scan"], check_close(g, w, SCAN_TOL, f"rglru_scan {out} {(B, S, W)}"))
+    print(f"small scans: kernel == plain within {SCAN_TOL} on {len(SSM_CASES)} SSM and {len(RGLRU_CASES)} RG-LRU cases; "
+          f"max abs err {errs}", flush=True)
+    return errs
+
+
+def serve(T, cfg, params, prompt, impl) -> tuple:
+    """Prefill the prompt, then DECODE_STEPS greedy steps; returns (last-token
+    prefill logits, the generated tokens, timings).  Decode runs the plain step
+    functions on every path, as the JAX package does."""
+    import torch
+
+    from repro_torch.train.steps import greedy_sample
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, {"tokens": prompt}, PROMPT + DECODE_STEPS, impl=impl)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = greedy_sample(logits)
+    tokens = [tok]
+    for _ in range(DECODE_STEPS):
+        step_logits, cache = T.decode_step(cfg, params, tok, cache)
+        tok = greedy_sample(step_logits)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stats = {
+        "prefill_s": t1 - t0,
+        "ms_per_token": 1e3 * (t2 - t1) / DECODE_STEPS,
+        "prompt_tokens_per_s": BATCH * PROMPT / (t1 - t0),
+        "generated_tokens_per_s": BATCH * DECODE_STEPS / (t2 - t1),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    return logits, torch.cat(tokens, dim=1), stats
+
+
+class FirstCalls:
+    """Within the block, records the arguments of each kernel wrapper's first
+    ``prepare`` (the full-width inputs of the first layer that calls it)."""
+
+    def __init__(self, mods):
+        self.mods = mods
+        self.inputs: dict[str, tuple] = {}
+        self._orig: dict = {}
+
+    def __enter__(self):
+        for name, (mod, _, _) in self.mods.items():
+            orig = self._orig[name] = mod.prepare
+
+            def wrapped(*args, _name=name, _orig=orig, **kw):
+                self.inputs.setdefault(_name, (args, kw))
+                return _orig(*args, **kw)
+
+            mod.prepare = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, _, _) in self.mods.items():
+            mod.prepare = self._orig[name]
+
+
+def sdpa_ms(q, k, v, causal, window, q_offset) -> float:
+    """``scaled_dot_product_attention`` on the same inputs (``enable_gqa``, an explicit
+    mask for a window), timed as the library's yardstick; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    Sq, Sk = q.shape[1], k.shape[1]
+    mask = None
+    if window or q_offset:
+        qp = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kp = torch.arange(Sk, device=q.device)[None, :]
+        mask = kp <= qp if causal else torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+        if window:
+            mask &= kp > qp - window
+    is_causal = causal and mask is None
+    try:
+        F.scaled_dot_product_attention(qt[:, :, :1], kt, vt, attn_mask=None if mask is None else mask[:1],
+                                       enable_gqa=True)
+        kw = {"enable_gqa": True}
+    except TypeError:  # a PyTorch without enable_gqa: expand the kv heads beforehand
+        g = q.shape[2] // k.shape[2]
+        kt, vt, kw = kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1), {}
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=is_causal, **kw), reps=10)
+
+
+def measure_kernel(name, mods, args, kw) -> dict:
+    """Hold a kernel against its plain version on one layer's full-width inputs, then
+    time its bare launch, its whole wrapper and the plain version."""
+    import torch
+
+    mod, entry, plain = mods[name]
+    plain_kw = dict(kw, q_block=1024, kv_block=1024) if name == "flash_attention" else kw
+    job = mod.prepare(*args, **kw)  # checks and allocation, outside the timed region
+    got = mod.launch(job)
+    want = plain(*args, **plain_kw)
+    torch.cuda.synchronize()
+    if name == "flash_attention":
+        got, want, tol = (got,), (want,), ATTN_TOL[str(args[0].dtype).removeprefix("torch.")]
+    else:
+        tol = SCAN_TOL
+    err = max(check_close(g, w, tol, f"full width {name}") for g, w in zip(got, want))
+    del got, want
+    row = {
+        "shape": [list(a.shape) for a in args],
+        "dtype": str(args[0].dtype).removeprefix("torch."),
+        "max_abs_err": err,
+        "ms": time_ms(lambda: mod.launch(job), reps=10),
+        "wrapper_ms": time_ms(lambda: entry(*args, **kw), reps=10),
+        "plain_ms": time_ms(lambda: plain(*args, **plain_kw), reps=3),
+    }
+    if name == "flash_attention":
+        row["bound_ms"], row["bound_by"] = attention_bound(args[0], args[1], kw["causal"], kw["window"], kw["q_offset"])
+        row["library_ms"] = sdpa_ms(*args, kw["causal"], kw["window"], kw["q_offset"])
+        row.update({k: kw[k] for k in ("causal", "window", "q_offset")})
+    else:
+        row["bound_ms"], row["bound_by"] = scan_bound(name, args)
+        row["library_ms"] = None
+    return row
+
+
+def serve_models(device) -> dict[str, dict]:
+    """Phase 6: serve each model at full width, kernel path then plain path, and
+    measure each kernel on the inputs of its first layer.  Returns per kernel its
+    launches per model and its full-width measurements per model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    mods = model_kernel_modules()
+    found = {name: {"launches": {}, "full_width": {}} for name in mods}
+    for arch, expected in MODELS:
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, seed=0, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in params.values() if isinstance(x, torch.Tensor))
+        n_params += sum(x.numel() for layer in params["layers"] for x in layer.values())
+        gen = torch.Generator(device=device).manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device)
+        # warm-up, not timed or counted: the first prefill at these shapes also pays for
+        # loading and choosing the library's matmul kernels
+        T.prefill(cfg, params, {"tokens": prompt}, PROMPT + DECODE_STEPS)
+        torch.cuda.synchronize()
+
+        reset_launches()
+        logits, tokens, kernel_stats = serve(T, cfg, params, prompt, impl=None)  # the main path
+        launches = read_launches()
+        if launches != {name: expected.get(name, 0) for name in launches}:
+            raise AssertionError(f"{arch}: kernel launches {launches}, expected {expected}")
+        plain_logits, plain_tokens, plain_stats = serve(T, cfg, params, prompt, impl="plain")
+        if logits.shape != (BATCH, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: logits {tuple(logits.shape)} or non-finite values")
+        err = float((logits.float() - plain_logits.float()).abs().max())
+        scale = float(plain_logits.float().abs().max())
+        if not err <= LOGITS_TOL * (1.0 + scale):
+            raise AssertionError(f"{arch}: kernel-path logits differ from the plain path's by {err} (scale {scale})")
+        agree = torch.equal(tokens, plain_tokens)
+        del logits, plain_logits
+
+        # the model's first layers up to the first of each kind again, recording the
+        # kernels' inputs (the same as the full model's first layers get)
+        kinds = T.layer_kinds(cfg)
+        n_first = max(kinds.index(kind) for kind in set(kinds)) + 1
+        head = dataclasses.replace(cfg, n_layers=n_first)
+        with FirstCalls(mods) as calls:
+            T.prefill(head, dict(params, layers=params["layers"][:n_first]), {"tokens": prompt}, PROMPT)
+        for name in list(calls.inputs):
+            args, kw = calls.inputs.pop(name)
+            found[name]["launches"][arch] = launches[name]
+            found[name]["full_width"][arch] = measure_kernel(name, mods, args, kw)
+            del args, kw
+
+        print(json.dumps({"serving": {
+            "model": arch, "layers": cfg.n_layers, "params_b": n_params / 1e9, "batch": BATCH,
+            "prompt_tokens": PROMPT, "decode_steps": DECODE_STEPS, "init_s": init_s, "launches": launches,
+            "logits_max_abs_err": err, "logits_scale": scale, "logits_tol": LOGITS_TOL * (1.0 + scale),
+            "greedy_tokens_agree": agree, "kernel": kernel_stats, "plain": plain_stats,
+        }}), flush=True)
+        del params, prompt, tokens, plain_tokens
+        torch.cuda.empty_cache()
+    return found
+
+
+def model_kernel_rows(found, small_errs) -> list[dict]:
+    """One row per model kernel for the kernels line: the first model that runs it
+    gives the row's numbers, every model's are under ``by_model``."""
+    rows = []
+    for name, (source, replaces) in MODEL_KERNELS.items():
+        runs = found[name]["full_width"]
+        first = next(iter(runs))
+        m = runs[first]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(found[name]["launches"].values()),
+            "max_abs_err": max(max(r["max_abs_err"] for r in runs.values()), small_errs[name]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "wrapper_ms": m["wrapper_ms"], "match": True,
+            "model": first, "launches_by_model": found[name]["launches"], "by_model": runs,
+        })
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -276,8 +701,11 @@ def main() -> int:
     _build.load_library()
     print(f"build_s {time.perf_counter() - t0:.3f}  ({_build.library_path().name})", flush=True)
     for line in _build.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        entry = re.search(r"Compiling entry function '.*_cu_[0-9a-f]{8}\d+(\w+?_kernel)(\w*)'", line)
+        if entry:  # the kernel's name and its integer template arguments
+            print("  ptxas:", entry.group(1), *re.findall(r"Li(\d+)E", entry.group(2)))
+        elif "registers" in line or "spill" in line:
+            print("  ptxas:   ", line.replace("ptxas info    :", "").strip())
 
     # -- 3. kernel vs plain version on small studies, and the golden digest ----
     for name, sc in small_studies().items():
@@ -303,12 +731,13 @@ def main() -> int:
     print(f"full width: {sc.n_markets} markets x {len(sc.bids)} bids = {C} cells, P = {P} periods, "
           f"{S * C} simulation cells, ADAPT table entries {args[8][0].numel()}, set-up {setup_s:.3f} s", flush=True)
 
-    kernel.launches = 0
+    reset_launches()
     res = run(sc)  # the main path, on the card
     torch.cuda.synchronize()
-    launches = kernel.launches
-    if launches < 1:
-        raise AssertionError("the main path did not launch the spot_sweep kernel")
+    counts = read_launches()
+    launches = counts.pop("spot_sweep")
+    if launches < 1 or any(counts.values()):
+        raise AssertionError(f"the study's path launched spot_sweep {launches} times and the others {counts}")
     res_plain = TorchEngine(device=device, impl="plain").run(sc)
     compare_results(res, res_plain, "full width engine")
     if res.shape != (sc.n_markets, len(sc.bids), S) or not (res.completion_time[res.completed] < float("inf")).all():
@@ -326,7 +755,7 @@ def main() -> int:
     wrapper_ms = time_ms(lambda: kernel.spot_sweep(*args), reps=10)  # checks + allocation + launch
     plain_ms = time_ms(lambda: ref.sweep_plain(*args), reps=3)
     bound_ms, bound_by = sweep_bound(args, out)
-    print(json.dumps({"kernels": [{
+    sweep_row = {
         "name": "spot_sweep",
         "route": "cuda",
         "source": "src/repro_torch/kernels/spot_sweep/csrc/spot_sweep.cu",
@@ -340,7 +769,7 @@ def main() -> int:
         "library_ms": None,
         "wrapper_ms": wrapper_ms,
         "match": True,
-    }]}), flush=True)
+    }
 
     walls = {}
     for label, eng in (("cuda", TorchEngine(device=device)), ("plain", TorchEngine(device=device, impl="plain"))):
@@ -351,8 +780,20 @@ def main() -> int:
             "grid_s": t.grid_s,
         }
     print(json.dumps({"engine": {"cells": res.n_cells, "setup_s": setup_s, **walls}}), flush=True)
+    del sc, args, res, res_plain, out, out_plain, job
 
-    # -- 5. the result line -------------------------------------------------
+    # -- 5. the model kernels vs their plain versions at small shapes --------
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    small_errs = small_kernel_checks(device)
+
+    # -- 6. serving at full width -------------------------------------------
+    found = serve_models(device)
+
+    # -- 7. the kernels line --------------------------------------------------
+    print(json.dumps({"kernels": [sweep_row, *model_kernel_rows(found, small_errs)]}), flush=True)
+
+    # -- 8. the result line -------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

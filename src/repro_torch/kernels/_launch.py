@@ -1,0 +1,81 @@
+"""What every launch wrapper of the port shares: input checks and the
+prepared-launch record.
+
+A wrapper's ``prepare`` checks its inputs (raising on anything its kernel
+cannot run), allocates the outputs and binds the C function's arguments into a
+:class:`Launch`; its ``launch`` calls the C function, raises on a nonzero
+``cudaGetLastError()`` and counts the launch.  A caller timing a kernel puts
+only ``launch`` between its events.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections.abc import Callable, Sequence
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+PTR, I64, F32, F64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
+
+
+class Launch(NamedTuple):
+    """A checked launch: the C function, its arguments (the tensors they point
+    into are held in ``keep`` and ``outs``), and the output tensors the launch
+    writes."""
+
+    fn: Callable[..., int]
+    args: tuple
+    keep: tuple
+    outs: tuple
+
+
+#: name -> bound C function, so a launch does not look for the library again
+_FUNCTIONS: dict[str, Callable[..., int]] = {}
+
+
+def c_function(name: str, argtypes: Sequence) -> Callable[..., int]:
+    """``name`` of the built library (built and loaded at the first call in the
+    process), with its argument types declared (a pointer undeclared would be
+    cut to 32 bits)."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        fn = getattr(_build.load_library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
+    return fn
+
+
+def check(name, x, dtype, shape, device):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (``dtype`` may be a tuple of the dtypes accepted)."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {' or '.join(map(str, dtypes))}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(name: str, x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on cuda, not {x.device}")
+    return x.device
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def call(name: str, job: Launch) -> tuple:
+    """Run a prepared launch; raises when the launch is refused."""
+    err = job.fn(*job.args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    return job.outs

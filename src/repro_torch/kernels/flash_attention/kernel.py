@@ -1,0 +1,91 @@
+"""Launch wrapper of the hand-written CUDA flash-attention kernel.
+
+:func:`flash_attention` takes q ``(B, Sq, H, D)`` and k / v ``(B, Sk, KV, D)``.
+On CUDA tensors it launches ``flash_attention_launch`` of
+``csrc/flash_attention.cu`` (one block per (batch, kv head, q tile):
+tensor-core tiles for bfloat16, FMA for float32; see the note at the top of
+the source) on the current stream, or raises; on CPU
+tensors it runs the plain PyTorch version
+(:func:`repro_torch.kernels.flash_attention.ref.block_attention`), because no
+kernel runs there.  Nothing falls back from the kernel to the plain version.
+
+:func:`flash_attention` is :func:`prepare` (input checks, output allocation)
+followed by :func:`launch` (the bare launch); :data:`launches` counts the
+kernel's launches in this process.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels._launch import F32, I64, PTR, Launch, c_function, call, check, require_cuda, stream
+from repro_torch.kernels.flash_attention import ref
+
+#: Kernel launches in this process (incremented once per launch, nowhere else).
+launches = 0
+
+#: Head dims the kernel is built for.
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Largest G = H / KV (the query heads of a kv head share a block's rows), ``kMaxGroup``.
+ROWS = 64
+#: Input dtypes and their codes in the source; the output has q's dtype.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# flash_attention_launch's parameters, in order
+_ARGTYPES = [PTR] * 4 + [I64] * 10 + [F32, PTR]
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, q_block=1024, kv_block=1024):
+    """Attention of q over k / v, returned in q's dtype.
+
+    ``q_block`` / ``kv_block`` are the plain version's tiles; the kernel has
+    its own.
+    """
+    if q.device.type == "cpu":
+        return ref.block_attention(
+            q, k, v, causal=causal, window=window, q_block=q_block, kv_block=kv_block, q_offset=q_offset
+        )
+    return launch(prepare(q, k, v, causal=causal, window=window, q_offset=q_offset))
+
+
+def prepare(q, k, v, *, causal=True, window=0, q_offset=0) -> Launch:
+    """Check the CUDA inputs of :func:`flash_attention`, allocate its output
+    and bind the launch's arguments; raises on anything the kernel cannot run."""
+    dev = require_cuda("flash_attention", q)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be 4-d (B, S, heads, D), got {tuple(q.shape)} and {tuple(k.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not supported; the kernel is built for {HEAD_DIMS}")
+    check("q", q, tuple(DTYPES), (B, Sq, H, D), dev)
+    check("k", k, q.dtype, (B, Sk, KV, D), dev)
+    check("v", v, q.dtype, (B, Sk, KV, D), dev)
+    if KV < 1 or H % KV or H // KV > ROWS:
+        raise ValueError(f"{H} query heads over {KV} kv heads: need H % KV == 0 and H / KV <= {ROWS}")
+    if min(B, Sq, Sk) < 1 or max(B, KV) > 65535:
+        raise ValueError(f"unsupported sizes B={B}, Sq={Sq}, Sk={Sk}, KV={KV}")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"window ({window}) and q_offset ({q_offset}) must be >= 0")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads 16 bytes at a time)")
+    out = torch.empty_like(q)
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Sk, H, KV, D, int(bool(causal)), int(window), int(q_offset), DTYPES[q.dtype],
+        1.0 / math.sqrt(D),
+        stream(dev),
+    )
+    return Launch(c_function("flash_attention_launch", _ARGTYPES), args, (q, k, v), (out,))
+
+
+def launch(job: Launch) -> torch.Tensor:
+    """Launch a prepared attention on the stream it was prepared for; returns
+    its output.  Raises on a nonzero ``cudaGetLastError()``."""
+    global launches
+    (out,) = call("flash_attention", job)
+    launches += 1
+    return out

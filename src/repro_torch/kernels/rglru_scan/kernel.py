@@ -1,0 +1,59 @@
+"""Launch wrapper of the hand-written CUDA RG-LRU scan kernel.
+
+:func:`rglru_scan` takes log_a and gated_x ``(B, S, W)`` float32.  On CUDA
+tensors it launches ``rglru_scan_launch`` of ``csrc/rglru_scan.cu`` (one
+thread per (b, w) channel; see the note at the top of the source) on the
+current stream, or raises; on CPU tensors it runs the plain PyTorch version
+(:func:`repro_torch.kernels.rglru_scan.ref.rglru_scan`).  Nothing falls back
+from the kernel to the plain version.  The scan starts from a zero state, as
+the TPU kernel does.
+
+:func:`rglru_scan` is :func:`prepare` followed by :func:`launch`;
+:data:`launches` counts the kernel's launches in this process.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._launch import I64, PTR, Launch, c_function, call, check, require_cuda, stream
+from repro_torch.kernels.rglru_scan import ref
+
+#: Kernel launches in this process (incremented once per launch, nowhere else).
+launches = 0
+
+# rglru_scan_launch's parameters, in order
+_ARGTYPES = [PTR] * 4 + [I64] * 3 + [PTR]
+
+
+def rglru_scan(log_a, gated_x):
+    """Returns h ``(B, S, W)`` and h_last ``(B, W)``, both float32."""
+    if log_a.device.type == "cpu":
+        return ref.rglru_scan(log_a, gated_x)
+    return launch(prepare(log_a, gated_x))
+
+
+def prepare(log_a, gated_x) -> Launch:
+    """Check the CUDA inputs of :func:`rglru_scan`, allocate its outputs and
+    bind the launch's arguments; raises on anything the kernel cannot run."""
+    dev = require_cuda("rglru_scan", log_a)
+    if log_a.dim() != 3:
+        raise ValueError(f"log_a must be (B, S, W), got {tuple(log_a.shape)}")
+    B, S, W = log_a.shape
+    check("log_a", log_a, torch.float32, (B, S, W), dev)
+    check("gated_x", gated_x, torch.float32, (B, S, W), dev)
+    if min(B, S, W) < 1:
+        raise ValueError(f"empty scan {tuple(log_a.shape)}")
+    h = torch.empty((B, S, W), dtype=torch.float32, device=dev)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=dev)
+    args = (log_a.data_ptr(), gated_x.data_ptr(), h.data_ptr(), h_last.data_ptr(), B, S, W, stream(dev))
+    return Launch(c_function("rglru_scan_launch", _ARGTYPES), args, (log_a, gated_x), (h, h_last))
+
+
+def launch(job: Launch):
+    """Launch a prepared scan on the stream it was prepared for; returns
+    ``(h, h_last)``.  Raises on a nonzero ``cudaGetLastError()``."""
+    global launches
+    outs = call("rglru_scan", job)
+    launches += 1
+    return outs

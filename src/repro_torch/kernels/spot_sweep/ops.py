@@ -26,10 +26,11 @@ import torch
 from repro_torch.core.schemes import Scheme
 from repro_torch.engine.base import resolve_device
 from repro_torch.engine.batch import _bill_runs_flat
+from repro_torch.kernels import IMPLS, check_impl
 from repro_torch.kernels.spot_sweep import kernel, ref
 from repro_torch.obs import telemetry as obs
 
-IMPLS = (None, "plain")
+__all__ = ["IMPLS", "device_arrays", "spot_sweep_grid", "sweep_consts"]
 
 
 def _edge_inputs(grid, t_r):
@@ -93,8 +94,7 @@ def spot_sweep_grid(schemes, grid, scenario, adapt_tables=None, device=None, imp
     and billing phases are recorded as telemetry spans (``sim`` with an
     ``impl`` attr, ``bill`` per scheme).
     """
-    if impl not in IMPLS:
-        raise ValueError(f"unknown spot_sweep impl {impl!r}; expected one of {IMPLS}")
+    check_impl(impl)
     schemes = tuple(schemes)
     dev = resolve_device(device)
     params = scenario.params

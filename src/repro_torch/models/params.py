@@ -1,0 +1,104 @@
+"""Parameters: random init on a device, and the carry-across from the JAX package.
+
+The parameters are the JAX package's pytree as a plain dict with the same
+names, shapes and dtypes::
+
+    {"embed.tokens": (V_pad, d), "unembed": (d, V_pad), "final_norm.scale": (d,),
+     "layers": [{"norm1.scale": ..., "attn.wq": (d, H, Dh), ...}, ...]}
+
+:class:`ParamBuilder` draws each dense weight from a truncated normal in
+[-2, 2] times ``std = 1 / sqrt(fan_in)`` (or a given scale) from an explicit
+``torch.Generator`` on the target device.  The numbers differ from
+``jax.random``'s for the same seed; :func:`from_jax` carries the JAX
+package's own init across instead, for the tests that compare the two.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_ERF_SQRT2 = math.erf(math.sqrt(2.0))  # 2 * Phi(2) - 1: the [-2, 2] cut of a unit normal
+
+
+def truncated_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """float32 unit normal truncated to [-2, 2], by inverting the CDF of a
+    uniform draw (as ``torch.nn.init.trunc_normal_`` does)."""
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(-_ERF_SQRT2, _ERF_SQRT2, generator=generator)
+    return u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
+class ParamBuilder:
+    """Accumulates ``{name: tensor}`` for one parameter group (a layer, or the
+    embeddings), in the model's dtype unless told otherwise."""
+
+    def __init__(self, generator: torch.Generator, device, dtype: torch.dtype):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.params: dict[str, torch.Tensor] = {}
+
+    def dense(self, name: str, shape: tuple[int, ...], scale: float | None = None):
+        std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        self.params[name] = (truncated_normal(shape, self.generator, self.device) * std).to(self.dtype)
+        return self
+
+    def zeros(self, name: str, shape: tuple[int, ...], dtype=None):
+        self.params[name] = torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+        return self
+
+    def ones(self, name: str, shape: tuple[int, ...], dtype=None):
+        self.params[name] = torch.ones(shape, dtype=dtype or self.dtype, device=self.device)
+        return self
+
+    def const(self, name: str, value: torch.Tensor):
+        self.params[name] = value.to(self.device)
+        return self
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _tensor(x: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bfloat16 included: JAX's bf16 arrays reach numpy as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so their bits
+    go across as int16."""
+    x = np.array(x, order="C")  # a copy: torch must not share a read-only buffer
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def from_jax(cfg, params_np: dict, device) -> dict:
+    """The JAX package's parameters (its pytree with numpy leaves) as the
+    port's, on ``device``.  Raises unless every name, shape and dtype is the
+    one the port's own init makes for ``cfg``."""
+    from repro_torch.models.transformer import init_params
+
+    want = init_params(cfg, seed=0, device="meta")
+    device = torch.device(device)
+
+    def carry(got: dict, spec: dict, where: str) -> dict:
+        if set(got) != set(spec):
+            raise ValueError(f"{where}: names {sorted(got)} differ from {sorted(spec)}")
+        out = {}
+        for name, w in spec.items():
+            t = _tensor(np.asarray(got[name]))
+            if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+                raise ValueError(
+                    f"{where}{name}: {t.dtype}{tuple(t.shape)} differs from the port's {w.dtype}{tuple(w.shape)}"
+                )
+            out[name] = t.to(device)
+        return out
+
+    layers = params_np["layers"]
+    if len(layers) != len(want["layers"]):
+        raise ValueError(f"{len(layers)} layers, expected {len(want['layers'])}")
+    top = {k: v for k, v in params_np.items() if k != "layers"}
+    out = carry(top, {k: v for k, v in want.items() if k != "layers"}, "")
+    out["layers"] = [carry(p, w, f"layers[{i}].") for i, (p, w) in enumerate(zip(layers, want["layers"]))]
+    return out

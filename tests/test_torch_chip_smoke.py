@@ -1,0 +1,70 @@
+"""``chip_smoke.py``'s host-side parts, on the CPU: the bounds it computes, the
+cases it covers, and its refusal to run without a GPU."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize(
+    "sq, sk, causal, window, q_offset",
+    [(7, 7, True, 0, 0), (7, 7, False, 0, 0), (20, 20, True, 5, 0), (5, 30, True, 0, 25), (6, 30, True, 4, 20),
+     (9, 12, False, 3, 0), (4, 3, True, 0, 10)],
+)
+def test_visible_pairs_counts_the_mask(smoke, sq, sk, causal, window, q_offset):
+    q = np.arange(sq)[:, None] + q_offset
+    k = np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), dtype=bool)
+    if causal:
+        mask &= k <= q
+    if window:
+        mask &= k > q - window
+    assert smoke.visible_pairs(sq, sk, causal, window, q_offset) == int(mask.sum())
+
+
+def test_bounds_at_the_served_shapes(smoke):
+    meta = {"device": "meta", "dtype": torch.bfloat16}
+    glm = smoke.attention_bound(torch.empty((2, 4096, 32, 128), **meta), torch.empty((2, 4096, 2, 128), **meta),
+                                True, 0, 0)
+    gemma = smoke.attention_bound(torch.empty((2, 4096, 16, 256), **meta), torch.empty((2, 4096, 1, 256), **meta),
+                                  True, 2048, 0)
+    assert glm[1] == gemma[1] == "operations"
+    assert glm[0] == pytest.approx(4 * 128 * 4096 * 4097 / 2 * 2 * 32 / 989e9)  # ~0.278 ms
+    assert gemma[0] == pytest.approx(4 * 256 * (2048 * 2049 / 2 + 2048 * 2048) * 2 * 16 / 989e9)  # ~0.208 ms
+    f32 = {"device": "meta", "dtype": torch.float32}
+    rglru = smoke.scan_bound("rglru_scan", (torch.empty((2, 4096, 4096), **f32),) * 2)
+    assert rglru == (pytest.approx(1e3 * 4 * (3 * 2 * 4096 * 4096 + 2 * 4096) / 3.35e12), "bytes")  # ~0.120 ms
+    dtA = torch.empty((2, 4096, 8192, 16), **f32)
+    ssm = smoke.scan_bound("ssm_scan", (dtA, dtA, torch.empty((2, 4096, 16), **meta)))
+    assert ssm[1] == "bytes" and ssm[0] == pytest.approx(2.6447, rel=1e-3)
+
+
+def test_small_cases_cover_what_the_kernels_take(smoke):
+    cases = smoke.ATTN_CASES
+    assert {c[4] for c in cases} >= {1, 4, 16}  # G
+    assert {c[5] for c in cases} >= {16, 64, 128, 256}  # D
+    assert any(not c[6] for c in cases) and any(c[8] > 0 for c in cases)  # bidirectional, q_offset
+    assert any(c[7] == 64 for c in cases) and any(0 < c[7] < c[2] for c in cases)  # window == tile, < S
+    assert any(c[1] % 64 for c in cases)  # a ragged length
+    assert all(s % 4 for _, s, *_ in smoke.SSM_CASES) and all(s % 8 for _, s, _ in smoke.RGLRU_CASES)
+
+
+def test_refuses_to_run_without_a_gpu(smoke, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert smoke.main() == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err

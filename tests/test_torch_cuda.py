@@ -1,11 +1,13 @@
-"""The CUDA spot-sweep kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: every test needs a CUDA device and ``nvcc`` and skips
-without them (so on a CPU-only machine).  On the card the kernel is
-built from ``src/repro_torch/kernels/spot_sweep/csrc/spot_sweep.cu`` and each
-of its outputs must equal the plain version's bit for bit (NaN pads
-included): both do the same IEEE float64 + − × ÷ and compares, and the
-kernel is built with ``--fmad=false``.  Run them on the card with
+without them (so on a CPU-only machine).  On the card the kernels are built
+from ``src/repro_torch/kernels/*/csrc/*.cu``.  Each output of the spot-sweep
+kernel must equal the plain version's bit for bit (NaN pads included): both do
+the same IEEE float64 + − × ÷ and compares, and the kernel is built with
+``--fmad=false``.  The model kernels (flash attention, SSM and RG-LRU scans)
+are held to their plain versions within the JAX tests' tolerances, and the
+smoke-size models to their plain path.  Run them on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
 
@@ -18,7 +20,13 @@ from repro_torch.core import HOUR, SimParams, catalog, get_instance, step_trace,
 from repro_torch.engine import BID_LIMITED_SCHEMES, Scenario, TorchEngine
 from repro_torch.engine.batch import grid_and_tables
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.rglru_scan import kernel as rglru
+from repro_torch.kernels.rglru_scan import ref as rglru_ref
 from repro_torch.kernels.spot_sweep import kernel, ops, ref
+from repro_torch.kernels.ssm_scan import kernel as ssm
+from repro_torch.kernels.ssm_scan import ref as ssm_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +126,107 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="out of range"):
         kernel.spot_sweep(sc.schemes, A, B, V, H, consts, ptr0=arrs["ptr0"], edges=arrs["edges"],
                           tables=(flat[:1], off, top))
+
+
+def close(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}  # tests/kernels/test_flash_attention.py
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "case",
+    [
+        # (B, Sq, Sk, KV, G, D, causal, window, q_offset)
+        (2, 200, 200, 2, 4, 64, True, 0, 0),
+        (2, 256, 256, 4, 1, 64, False, 0, 0),
+        (1, 300, 300, 1, 16, 128, True, 100, 0),
+        (1, 256, 256, 2, 4, 64, True, 64, 0),
+        (1, 64, 320, 1, 16, 256, True, 96, 256),
+        (2, 77, 77, 2, 2, 16, True, 0, 0),
+        (1, 33, 33, 2, 2, 32, False, 8, 0),
+    ],
+)
+def test_flash_attention_matches_plain_version(cuda, case, dtype):
+    B, Sq, Sk, KV, G, D, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, Sq, KV * G, D), generator=gen, device=cuda).to(dtype)
+    k, v = torch.randn((2, B, Sk, KV, D), generator=gen, device=cuda).to(dtype)
+    before = flash.launches
+    got = flash.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = flash_ref.block_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, q_block=64, kv_block=64)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(2, 77, 40, 16), (1, 301, 24, 4), (2, 5, 8, 2), (1, 63, 16, 32)])
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16], ids=["c_f32", "c_bf16"])
+def test_ssm_scan_matches_plain_version(cuda, shape, c_dtype):
+    B, S, D, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dtA = -torch.nn.functional.softplus(torch.randn(shape, generator=gen, device=cuda))
+    dBx = torch.randn(shape, generator=gen, device=cuda)
+    C = torch.randn((B, S, N), generator=gen, device=cuda).to(c_dtype)
+    got, want = ssm.ssm_scan(dtA, dBx, C), ssm_ref.ssm_scan(dtA, dBx, C)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        close(g, w, 1e-4)  # tests/kernels/test_scans.py
+
+
+@pytest.mark.parametrize("shape", [(2, 77, 96), (1, 1001, 130), (3, 9, 5)])
+def test_rglru_scan_matches_plain_version(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    log_a = -torch.nn.functional.softplus(torch.randn(shape, generator=gen, device=cuda))
+    gx = torch.randn(shape, generator=gen, device=cuda)
+    got, want = rglru.rglru_scan(log_a, gx), rglru_ref.rglru_scan(log_a, gx)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        close(g, w, 1e-4)
+
+
+def test_model_wrappers_reject_bad_inputs(cuda):
+    q = torch.randn((1, 16, 4, 64), device=cuda)
+    k = torch.randn((1, 16, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        flash.flash_attention(q, k.double(), k)
+    with pytest.raises(TypeError, match="dtype"):
+        flash.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash.flash_attention(torch.randn((1, 16, 4, 48), device=cuda), *[torch.randn((1, 16, 2, 48), device=cuda)] * 2)
+    with pytest.raises(ValueError, match="kv heads"):
+        flash.flash_attention(torch.randn((1, 16, 3, 64), device=cuda), k, k)
+    dtA = torch.randn((1, 8, 4, 16), device=cuda)
+    C = torch.randn((1, 8, 16), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ssm.ssm_scan(dtA.bfloat16(), dtA, C)
+    with pytest.raises(ValueError, match="state size 12"):
+        ssm.ssm_scan(dtA[..., :12].contiguous(), dtA[..., :12].contiguous(), C[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru.rglru_scan(C.transpose(1, 2), C.transpose(1, 2))
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "recurrentgemma-9b", "falcon-mamba-7b"])
+def test_smoke_models_on_the_card_match_their_plain_path(cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator(device=cuda).manual_seed(3),
+                           device=cuda)
+    counts = {m: m.launches for m in (flash, rglru, ssm)}
+    logits, cache = T.prefill(cfg, params, {"tokens": tokens}, 32, q_block=8, kv_block=8)
+    kinds = T.layer_kinds(cfg)
+    assert flash.launches - counts[flash] == kinds.count("dense") + kinds.count("attn")
+    assert rglru.launches - counts[rglru] == kinds.count("rec")
+    assert ssm.launches - counts[ssm] == kinds.count("mamba")
+    plain, _ = T.prefill(cfg, params, {"tokens": tokens}, 32, q_block=8, kv_block=8, impl="plain")
+    close(logits, plain, 2e-2)
+    step, _ = T.decode_step(cfg, params, logits[:, -1].argmax(-1, keepdim=True), cache)
+    assert torch.isfinite(step.float()).all()

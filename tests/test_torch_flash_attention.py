@@ -1,0 +1,152 @@
+"""The port's attention (plain PyTorch, on the CPU) against the JAX package's.
+
+The same numpy inputs from a seed go through the TPU kernel in interpret mode
+(``flash_attention_tpu(..., interpret=True)``), the JAX oracle
+``naive_attention`` and the port's ``flash_attention`` op / wrapper, which on
+CPU tensors run the plain ``block_attention``.  Tolerances are the JAX tests'
+own (``tests/kernels/test_flash_attention.py``): 2e-6 in float32, 2e-2 in
+bfloat16 (both sides compute in float32 and round the output to bfloat16).
+
+The window cases hold the port to the TPU kernel and the oracle.  The JAX
+package's ``ref.block_attention`` skips a kv tile when its *last* query row
+sees none of it, which drops keys its first rows see (``(1, 512, 2, 2, 64,
+True, 128)`` with 64-blocks is such a case); the port skips a tile only when
+no row sees it, as the kernel does.
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_tpu
+from repro.kernels.flash_attention.ref import block_attention as jax_block_attention
+from repro.kernels.flash_attention.ref import decode_attention as jax_decode_attention
+from repro.kernels.flash_attention.ref import naive_attention as jax_naive_attention
+from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+SHAPES = [
+    # (b, s, kv, g, d, causal, window) -- tests/kernels/test_flash_attention.py
+    (2, 256, 2, 4, 64, True, 0),  # GQA causal
+    (1, 256, 1, 8, 128, True, 0),  # MQA d=128
+    (2, 256, 4, 1, 64, False, 0),  # MHA bidirectional (encoder)
+    (1, 512, 2, 2, 64, True, 128),  # sliding window
+    (1, 128, 2, 2, 64, True, 64),  # window == block
+]
+DTYPES = {"float32": (np.float32, torch.float32, 2e-6), "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def qkv_np(b, sq, kv, g, d, np_dtype, sk=None, seed=0):
+    rng = np.random.default_rng(seed)
+    sk = sk or sq
+    q = rng.standard_normal((b, sq, kv * g, d), dtype=np.float32).astype(np_dtype)
+    k = rng.standard_normal((b, sk, kv, d), dtype=np.float32).astype(np_dtype)
+    v = rng.standard_normal((b, sk, kv, d), dtype=np.float32).astype(np_dtype)
+    return q, k, v
+
+
+def to_torch(*xs):
+    out = []
+    for x in xs:
+        if x.dtype == ml_dtypes.bfloat16:
+            out.append(torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16))
+        else:
+            out.append(torch.from_numpy(x.copy()))
+    return out
+
+
+def as_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "b{}s{}kv{}g{}d{}c{}w{}".format(*map(int, s)))
+def test_port_matches_tpu_kernel_and_oracle(shape, dtype):
+    b, s, kv, g, d, causal, window = shape
+    np_dtype, torch_dtype, tol = DTYPES[dtype]
+    q, k, v = qkv_np(b, s, kv, g, d, np_dtype)
+    tpu = flash_attention_tpu(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+        q_block=64, kv_block=64, interpret=True,
+    )
+    oracle = jax_naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window)
+    tq, tk, tv = to_torch(q, k, v)
+    port = ops.flash_attention(tq, tk, tv, causal=causal, window=window, q_block=64, kv_block=64)
+    assert port.dtype == torch_dtype and tuple(port.shape) == q.shape
+    np.testing.assert_allclose(as_f32(port), as_f32(tpu), atol=tol, rtol=tol)
+    np.testing.assert_allclose(as_f32(port), as_f32(oracle), atol=tol, rtol=tol)
+    naive = ref.naive_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(as_f32(naive), as_f32(oracle), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("blocks", [(32, 32), (64, 128), (128, 64), (256, 256), (48, 80)])
+def test_block_shape_invariance(blocks):
+    q, k, v = qkv_np(1, 256, 2, 2, 64, np.float32, seed=1)
+    oracle = jax_naive_attention(q, k, v, causal=True, window=100)
+    port = ref.block_attention(*to_torch(q, k, v), causal=True, window=100, q_block=blocks[0], kv_block=blocks[1])
+    np.testing.assert_allclose(as_f32(port), as_f32(oracle), atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_length(causal):
+    """S = 250 is no multiple of the 64-blocks: padded keys are masked and
+    padded rows cut off."""
+    q, k, v = qkv_np(2, 250, 2, 2, 64, np.float32, seed=2)
+    port = kernel.flash_attention(*to_torch(q, k, v), causal=causal, q_block=64, kv_block=64)
+    oracle = jax_naive_attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(as_f32(port), as_f32(oracle), atol=2e-6, rtol=2e-6)
+    jax_ref = jax_block_attention(q, k, v, causal=causal, q_block=64, kv_block=64)
+    np.testing.assert_allclose(as_f32(port), as_f32(jax_ref), atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("window", [0, 96])
+def test_q_offset_suffix_queries(window):
+    """64 queries at absolute positions 192..255 against 256 keys."""
+    q, k, v = qkv_np(1, 64, 2, 4, 32, np.float32, sk=256, seed=3)
+    tpu = flash_attention_tpu(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, window=window, q_block=32, kv_block=64,
+        q_offset=192, interpret=True,
+    )
+    oracle = jax_naive_attention(q, k, v, causal=True, window=window, q_offset=192)
+    port = ops.flash_attention(*to_torch(q, k, v), causal=True, window=window, q_block=32, kv_block=64, q_offset=192)
+    np.testing.assert_allclose(as_f32(port), as_f32(tpu), atol=2e-6, rtol=2e-6)
+    np.testing.assert_allclose(as_f32(port), as_f32(oracle), atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+def test_decode_attention_matches_jax(window):
+    b, s, kv, g, d = 2, 96, 2, 3, 64
+    q, k, v = qkv_np(b, 1, kv, g, d, np.float32, sk=s + 32, seed=4)
+    for cur in (1, 50, s):
+        want = jax_decode_attention(q, k, v, jnp.asarray(cur), window=window)
+        got = ref.decode_attention(*to_torch(q, k, v), cur, window=window)
+        np.testing.assert_allclose(as_f32(got), as_f32(want), atol=2e-6, rtol=2e-6)
+
+
+def test_decode_attention_equals_last_row_of_full():
+    q, k, v = qkv_np(2, 96, 2, 3, 64, np.float32, seed=5)
+    tq, tk, tv = to_torch(q, k, v)
+    full = ref.naive_attention(tq, tk, tv, causal=True)
+    dec = ref.decode_attention(tq[:, -1:], tk, tv, 96)
+    np.testing.assert_allclose(dec[:, 0].numpy(), full[:, -1].numpy(), atol=2e-6, rtol=2e-6)
+
+
+def test_plain_impl_and_unknown_impl():
+    tq, tk, tv = to_torch(*qkv_np(1, 64, 1, 2, 16, np.float32, seed=6))
+    a = ops.flash_attention(tq, tk, tv, causal=True, q_block=16, kv_block=16)
+    b = ops.flash_attention(tq, tk, tv, causal=True, q_block=16, kv_block=16, impl="plain")
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.flash_attention(tq, tk, tv, impl="pallas")
+
+
+def test_kernel_prepare_refuses_cpu_tensors():
+    tq, tk, tv = to_torch(*qkv_np(1, 8, 1, 2, 16, np.float32))
+    before = kernel.launches
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernel.prepare(tq, tk, tv)
+    kernel.flash_attention(tq, tk, tv)  # the plain version: no launch
+    assert kernel.launches == before

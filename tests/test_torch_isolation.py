@@ -34,10 +34,31 @@ def test_every_module_is_found():
         "repro_torch.engine.batch",
         "repro_torch.engine.torch_backend",
         "repro_torch.kernels._build",
+        "repro_torch.kernels._launch",
         "repro_torch.kernels.spot_sweep.kernel",
         "repro_torch.kernels.spot_sweep.ops",
         "repro_torch.kernels.spot_sweep.ref",
+        "repro_torch.kernels.flash_attention.kernel",
+        "repro_torch.kernels.flash_attention.ops",
+        "repro_torch.kernels.flash_attention.ref",
+        "repro_torch.kernels.rglru_scan.kernel",
+        "repro_torch.kernels.rglru_scan.ops",
+        "repro_torch.kernels.rglru_scan.ref",
+        "repro_torch.kernels.ssm_scan.kernel",
+        "repro_torch.kernels.ssm_scan.ops",
+        "repro_torch.kernels.ssm_scan.ref",
+        "repro_torch.configs",
+        "repro_torch.configs.falcon_mamba_7b",
+        "repro_torch.configs.glm4_9b",
+        "repro_torch.configs.recurrentgemma_9b",
+        "repro_torch.models.config",
+        "repro_torch.models.layers",
+        "repro_torch.models.params",
+        "repro_torch.models.rglru",
+        "repro_torch.models.ssm",
+        "repro_torch.models.transformer",
         "repro_torch.obs.retrace",
+        "repro_torch.train.steps",
     ):
         assert required in names
 
