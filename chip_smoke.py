@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, and run the §VII study.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, serve and train.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -40,8 +40,31 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    version, and timed, on the full-width inputs of the first layer that called
    it, beside its bound and (attention) ``scaled_dot_product_attention``.
    Prints one ``{"serving": ...}`` line per model.
-7. Prints one ``{"kernels": [...]}`` line with the four kernels.
-8. Prints ``{"ok": true, "device": {...}}`` as the last line.
+7. Holds the checkpoint codec kernel against its plain version on the card, bit
+   for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
+   float32, bfloat16 and float16, all-zero blocks, exact .5 ties of a block's
+   step, magnitudes across each type's finite range, and a NaN block.
+8. Small training checks on the card: for the smoke configs of the three
+   models, one ``loss_fn`` value and every parameter's gradient through the
+   kernels' autograd Functions against ``impl="plain"`` (bf16: the loss within
+   the serving tolerances; float32: the loss and each leaf's gradient); every
+   parameter must get a nonzero gradient through the kernels.
+9. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
+   AdamW with float32 moments, batch 2 x 4096 tokens from ``TokenStream``,
+   ``remat=False``, ``q_block = kv_block = 1024``) through
+   ``repro_torch.train.steps.make_train_step``: holds the codec kernel against
+   its plain version on every leaf of the initial state and times it on the
+   biggest; one untimed warm-up step (its loss against the same step's loss
+   through ``impl="plain"``), then timed steps with their flash-attention
+   launches counted; then a split of one step (forward, backward, optimizer).
+10. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
+   async writes, ``keep=2``, a checkpoint directory removed at exit) on the
+   trace of ``tests/train/test_spot_trainer.py``: one preemption, one restore,
+   ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
+   restored state within half a quantization step per block of the saved
+   one.  Prints one ``{"training": ...}`` line.
+11. Prints one ``{"kernels": [...]}`` line with the five kernels.
+12. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -51,9 +74,11 @@ from __future__ import annotations
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -330,7 +355,9 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.spot_sweep import kernel as sweep
     from repro_torch.kernels.ssm_scan import kernel as ssm
 
-    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm}
+    from repro_torch.kernels.ckpt_codec import kernel as codec
+
+    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm, "ckpt_codec": codec}
 
 
 def reset_launches() -> None:
@@ -673,6 +700,483 @@ def model_kernel_rows(found, small_errs) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The training path: checkpoint codec, loss and gradients, train steps, campaign
+# ---------------------------------------------------------------------------
+
+CODEC_SOURCE = ("src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu", "src/repro/kernels/ckpt_codec/kernel.py:27")
+#: Small codec cases: element counts, each in float32, bfloat16 and float16.
+CODEC_SIZES = (1, 255, 256, 257, 1000, 4096, (1 << 20) + 3)
+#: Training checks on the smoke configs, kernels vs plain path.  bf16: the loss within
+#: the serving tolerances (2e-2, 3e-2 for the hybrid; atol = rtol).  float32: the loss
+#: within 1e-5 relative, and each leaf's gradient within 1e-4 of the largest |gradient|
+#: of the plain path's leaf: the backward recomputes the plain version in both paths,
+#: so they differ only where the kernel's float32 forward (within 2e-6 of the plain
+#: version) moves the activations the backward starts from.
+TRAIN_LOSS_TOL = {"dense": 2e-2, "hybrid": 3e-2, "ssm": 2e-2}
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-4
+#: The full-width training run: glm4-9b cut to 4 of its 40 layers (all 40 with AdamW are
+#: 9.4 B parameters x 12 bytes = 113 GB, above the card's 80 GB).
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "glm4-9b", 4, 2, 4096, 3
+#: The spot campaign: tests/train/test_spot_trainer.py's trace, bid, step time and length.
+CAMPAIGN_TRACE = ((0.0, 0.40), (3200.0, 1.00), (4000.0, 0.40))
+CAMPAIGN = dict(a_bid=0.5, step_time_s=300.0, max_steps=12, codec="int8", async_io=True, keep=2)
+#: A restored leaf against the saved one: half a quantization step of its block, plus the
+#: rounding of q * scale to the leaf's dtype (relative to |saved| + half a step).
+RESTORE_ROUNDING = {"bfloat16": 2.0**-8, "float16": 2.0**-10, "float32": 2.0**-22}
+
+
+def codec_equal(got, want, what) -> None:
+    """Fail unless the kernel's (q, scales, shape) equal the plain version's bit for
+    bit (NaN scales where the plain version's are NaN; q of a NaN block is
+    undefined in both and not compared)."""
+    import torch
+
+    (q, sc, shape), (q2, sc2, shape2) = got, want
+    if shape != shape2 or q.shape != q2.shape or q.dtype != q2.dtype or sc.dtype != sc2.dtype:
+        raise AssertionError(f"{what}: outputs {q.dtype}{tuple(q.shape)} / {sc.dtype}, plain {q2.dtype}{tuple(q2.shape)}")
+    nan = torch.isnan(sc2)
+    if not torch.equal(torch.isnan(sc), nan):
+        raise AssertionError(f"{what}: NaN scales differ")
+    if not torch.equal(sc[~nan].view(torch.int32), sc2[~nan].view(torch.int32)):
+        raise AssertionError(f"{what}: scales differ")
+    if not torch.equal(q[~nan], q2[~nan]):
+        raise AssertionError(f"{what}: q differs in {int((q[~nan] != q2[~nan]).sum())} entries")
+
+
+def small_codec_checks(device) -> int:
+    """The codec kernel against its plain version on small inputs; returns the count of cases."""
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import kernel as codec
+    from repro_torch.kernels.ckpt_codec import ref as codec_ref
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases = []
+    for dtype, top in ((torch.float32, 1e30), (torch.bfloat16, 1e30), (torch.float16, 6e4)):
+        for n in CODEC_SIZES:
+            cases.append((f"randn n={n}", (torch.randn(n, generator=gen, device=device) * 3).to(dtype)))
+        x = torch.zeros(5 * 256 + 17, device=device)
+        x[256:512] = torch.arange(256, device=device) * 0.5 - 64.0  # with 127 below: step 1, x.5 ties
+        x[300] = 127.0
+        x[512:768] = torch.linspace(-1.0, 1.0, 256, device=device) * top  # the type's range
+        x[768:1024] = torch.logspace(-30 if dtype != torch.float16 else -7, 0, 256, device=device)  # tiny to 1
+        x[1024:1280] = float("nan")
+        x[1280:] = -0.0
+        cases.append(("zeros, ties, range, NaN, -0", x.to(dtype)))
+        # blocks of magnitude 1e-30 .. 1e30 (float16: 1e-7 .. 6e4), clipped to the type's finite range
+        mags = torch.logspace(-30 if dtype != torch.float16 else -7, 30 if dtype != torch.float16 else 4.7, 64,
+                              device=device)
+        big = torch.finfo(dtype).max
+        x = (torch.randn((64, 256), generator=gen, device=device) * mags[:, None]).clamp(-big, big)
+        cases.append(("magnitudes", x.to(dtype)))
+    for what, x in cases:
+        got = codec.quantize(x)
+        want = codec_ref.quantize(x)
+        torch.cuda.synchronize()
+        codec_equal(got, want, f"ckpt_codec {what} {x.dtype}")
+    print(f"small ckpt_codec: kernel == plain bit for bit on {len(cases)} cases", flush=True)
+    return len(cases)
+
+
+def small_training_checks(device) -> dict:
+    """loss_fn and its gradients through the kernels against impl="plain" on the smoke
+    configs (bf16 and float32); every leaf must get a nonzero gradient through the
+    kernels.  Returns the loss and largest relative gradient difference per model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import transformer as T
+
+    # the repair of the autograd graph: a launch outside its Function with grad-requiring
+    # inputs raises instead of returning an output without a gradient
+    q = torch.zeros((1, 16, 2, 16), device=device, requires_grad=True)
+    try:
+        flash.prepare(q, q[:, :, :1].detach(), q[:, :, :1].detach())
+    except RuntimeError as e:
+        if "outside its autograd Function" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash_attention.prepare accepted grad-requiring inputs outside its Function")
+    del q, _launch
+
+    out = {}
+    for arch, _ in MODELS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+            params = T.init_params(cfg, seed=0, device=device)
+            gen = torch.Generator(device=device).manual_seed(3)
+            tokens = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device=device)
+            batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+            res = {}
+            for impl in (None, "plain"):
+                leaves, treedef = tree_lib.flatten(params)
+                wrt = [x.detach().requires_grad_(True) for x in leaves]
+                reset_launches()
+                loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, q_block=16, kv_block=16, impl=impl,
+                                   device=device)
+                loss.backward()
+                res[impl] = (float(loss.detach()), [x.grad for x in wrt], read_launches())
+            (loss_k, grads_k, launched), (loss_p, grads_p, _) = res[None], res["plain"]
+            if not any(launched[k] for k in ("flash_attention", "rglru_scan", "ssm_scan")):
+                raise AssertionError(f"{arch} {dtype}: the kernel path launched no model kernel: {launched}")
+            for i, g in enumerate(grads_k):
+                if g is None or not bool((g != 0).any()) or not bool(torch.isfinite(g.float()).all()):
+                    raise AssertionError(f"{arch} {dtype}: leaf {i} got no (or a non-finite) gradient through the kernels")
+            rel = max(float((g.float() - gp.float()).abs().max()) / max(float(gp.float().abs().max()), 1e-30)
+                      for g, gp in zip(grads_k, grads_p))
+            if dtype == "bfloat16":
+                tol = TRAIN_LOSS_TOL[cfg.family]
+                if not abs(loss_k - loss_p) <= tol + tol * abs(loss_p):
+                    raise AssertionError(f"{arch} bf16: loss {loss_k} vs plain {loss_p} beyond {tol}")
+            else:
+                if not abs(loss_k - loss_p) <= TRAIN_F32_LOSS_RTOL * abs(loss_p):
+                    raise AssertionError(f"{arch} float32: loss {loss_k} vs plain {loss_p}")
+                if not rel <= TRAIN_F32_GRAD_TOL:
+                    raise AssertionError(f"{arch} float32: a gradient leaf differs by {rel} of its scale")
+            out[f"{arch} {dtype}"] = {"loss": loss_k, "loss_plain": loss_p, "grad_max_rel_diff": rel,
+                                      "launches": {k: v for k, v in launched.items() if v}}
+    print(f"small training: loss and gradients through the kernels == plain path within tolerance: {out}", flush=True)
+    return out
+
+
+def codec_bound(x) -> tuple[float, str]:
+    """Least time to quantize ``x``: the leaf read once and n_blocks * 260 bytes (q and
+    scales) written once, at HBM bandwidth; its few operations per element are far below
+    the card's rates."""
+    n_blocks = -(-x.numel() // 256)
+    return 1e3 * (x.numel() * x.element_size() + n_blocks * 260) / HBM_BYTES_PER_S, "bytes"
+
+
+def check_codec_on_state(state, device) -> dict:
+    """The codec kernel against its plain version, bit for bit, on every float leaf of
+    1024 elements or more of ``state``; then its time on the biggest leaf."""
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.checkpoint.manager import quantized
+    from repro_torch.kernels.ckpt_codec import kernel as codec
+    from repro_torch.kernels.ckpt_codec import ref as codec_ref
+
+    leaves = [x for x in tree_lib.leaves(state) if quantized(x, "int8")]
+    for i, x in enumerate(leaves):
+        got = codec.quantize(x)
+        want = codec_ref.quantize(x)
+        torch.cuda.synchronize()
+        codec_equal(got, want, f"full-width leaf {i} {x.dtype}{tuple(x.shape)}")
+        del got, want
+    def measure(x) -> dict:
+        job = codec.prepare(x)
+        bound_ms, bound_by = codec_bound(x)
+        return {"shape": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
+                "ms": time_ms(lambda: codec.launch(job), reps=10),
+                "wrapper_ms": time_ms(lambda: codec.quantize(x), reps=10),
+                "plain_ms": time_ms(lambda: codec_ref.quantize(x), reps=3), "bound_ms": bound_ms, "bound_by": bound_by}
+
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    big = measure(max(leaves, key=size))  # a float32 moment of the embedding
+    big_bf16 = measure(max((x for x in leaves if x.dtype == torch.bfloat16), key=size))  # the embedding
+    print(f"full-width state: ckpt_codec kernel == plain bit for bit on all {len(leaves)} quantized leaves; "
+          f"biggest {big['dtype']}{tuple(big['shape'])}: {big['ms']:.4f} ms (bound {big['bound_ms']:.4f} ms, "
+          f"plain {big['plain_ms']:.3f} ms); {big_bf16['dtype']}{tuple(big_bf16['shape'])}: {big_bf16['ms']:.4f} ms "
+          f"(bound {big_bf16['bound_ms']:.4f} ms)", flush=True)
+    return {"leaves_checked": len(leaves), "max_abs_err": 0.0, **big, "bf16_leaf": big_bf16}
+
+
+def train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
+def step_split(cfg, opt_cfg, params, opt_state, batch, device) -> dict:
+    """Seconds of one train step's parts, each ended by a synchronize: forward
+    (loss_fn), backward (autograd.grad), AdamW; and one layer's attention alone:
+    the kernel's forward and the plain version's recompute + gradient of the backward."""
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_update
+
+    leaves, treedef = tree_lib.flatten(params)
+    wrt = [x.detach().requires_grad_(True) for x in leaves]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FirstCalls({"flash_attention": (flash, None, None)}) as calls:
+        loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, remat=False, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, wrt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del loss, wrt
+    new = adamw_update(params, treedef.unflatten(list(grads)), opt_state, opt_cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del new, grads
+    args, kw = calls.inputs["flash_attention"]
+    q, k, v = (a.detach() for a in args)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: flash.flash_attention(q, k, v, **kw), reps=5)
+    g = torch.randn_like(q)
+    plain_kw = dict(kw, q_block=1024, kv_block=1024)
+    bwd_ms = time_ms(lambda: _launch.recompute_grads(flash_ref.block_attention, (q, k, v), (True,) * 3, (g,), **plain_kw),
+                     reps=3)
+    return {"forward_s": t1 - t0, "backward_s": t2 - t1, "adamw_s": t3 - t2,
+            "attention_forward_ms_per_layer": fwd_ms, "attention_backward_recompute_ms_per_layer": bwd_ms,
+            "layers": cfg.n_layers}
+
+
+def train_full_width(device) -> tuple[dict, dict]:
+    """Phase 9: the full-width train step.  Returns the training numbers and the
+    codec's full-width measurement."""
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = train_cfg()
+    opt_cfg = AdamWConfig(lr=1e-4, moment_dtype="float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=device)
+    opt_state = adamw_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_lib.leaves(params))
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_lib.leaves((params, opt_state)))
+    codec_row = check_codec_on_state((params, opt_state), device)
+
+    data = TokenStream(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=11, device=device)
+    step = make_train_step(cfg, opt_cfg, remat=False, q_block=1024, kv_block=1024)
+    batch = next(data)
+    with torch.no_grad():  # the first step's loss through the plain versions, on the same params and batch
+        loss_plain, _ = T.loss_fn(cfg, params, batch, impl="plain", device=device)
+        loss_plain = float(loss_plain)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, metrics = step(params, opt_state, batch)  # warm-up, untimed in the steps below
+    first_loss = float(metrics["loss"])
+    warmup_s = time.perf_counter() - t0
+    tol = TRAIN_LOSS_TOL[cfg.family]
+    if not abs(first_loss - loss_plain) <= tol + tol * abs(loss_plain):
+        raise AssertionError(f"full-width training: first loss {first_loss} vs plain path {loss_plain}")
+
+    times, launches, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)  # the main path
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        losses.append(float(metrics["loss"]))
+    want = {name: (TRAIN_LAYERS if name == "flash_attention" else 0) for name in launches[0]}
+    if any(l != want for l in launches):
+        raise AssertionError(f"full-width training: launches per step {launches}, expected {want}")
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
+        raise AssertionError(f"full-width training: losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = step_split(cfg, opt_cfg, params, opt_state, next(data), device)
+    step_s = statistics.median(times)
+    out = {
+        "model": TRAIN_ARCH, "layers": TRAIN_LAYERS, "of_layers": 40, "params_b": n_params / 1e9,
+        "state_gb": state_bytes / 1e9, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_s": init_s,
+        "warmup_step_s": warmup_s, "step_s": times, "step_s_median": step_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_memory_gb": peak_gb,
+        "flash_attention_launches_per_step": launches[0]["flash_attention"],
+        "first_loss": first_loss, "first_loss_plain": loss_plain, "losses": losses, "split": split,
+    }
+    print(f"full-width training: {TRAIN_LAYERS} layers, step {step_s:.3f} s, {out['tokens_per_s']:.0f} tokens/s, "
+          f"peak {peak_gb:.2f} GB, first loss {first_loss:.4f} (plain {loss_plain:.4f})", flush=True)
+    del params, opt_state, metrics, batch
+    torch.cuda.empty_cache()
+    return out, codec_row
+
+
+class CampaignWatch:
+    """Wraps a trainer's checkpoint manager: times each save (the trainer's pause),
+    keeps a host copy of the saved state after the timed save, and holds each restore
+    against it: a quantized leaf within half a quantization step of its block (plus the
+    rounding of q * scale to the leaf's dtype), every other leaf equal."""
+
+    def __init__(self, mgr):
+        self.mgr = mgr
+        self.saves: list[dict] = []
+        self.restores: list[dict] = []
+        self._saved: dict[int, list] = {}
+        self._save, self._restore = mgr.save, mgr.restore
+        mgr.save, mgr.restore = self.save, self.restore
+
+    def save(self, step, tree, extra=None, *, block=True):
+        import torch
+
+        from repro_torch.checkpoint import tree as tree_lib
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = self._save(step, tree, extra, block=block)
+        torch.cuda.synchronize()
+        self.saves.append({"step": step, "save_wall_s": time.perf_counter() - t0, "snapshot_s": meta.wall_time_s})
+        self._saved[step] = [x.detach().to("cpu", copy=True) for x in tree_lib.leaves(tree)]
+        return meta
+
+    def restore(self, template, step=None):
+        import torch
+
+        from repro_torch.checkpoint import tree as tree_lib
+        from repro_torch.checkpoint.manager import quantized
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, extra = self._restore(template, step)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved = self._saved[int(extra["step"])]
+        worst: dict[str, float] = {}
+        for i, (got, want) in enumerate(zip(tree_lib.leaves(tree), saved)):
+            want = want.to(got.device)
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"restored leaf {i}: {got.dtype}{tuple(got.shape)} vs saved {want.dtype}{tuple(want.shape)}")
+            if not quantized(want, "int8"):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"restored leaf {i} differs from the saved one")
+                continue
+            n = want.numel()
+            w = torch.nn.functional.pad(want.reshape(-1).float(), (0, (-n) % 256)).reshape(-1, 256)
+            g = torch.nn.functional.pad(got.reshape(-1).float(), (0, (-n) % 256)).reshape(-1, 256)
+            half = 0.5 * torch.clamp_min(w.abs().amax(dim=1, keepdim=True), 1e-12) / 127.0
+            bound = half + (w.abs() + half) * RESTORE_ROUNDING[str(want.dtype).removeprefix("torch.")]
+            err = (g - w).abs()
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"restored leaf {i}: {float((err - bound).max())} beyond half a step")
+            name = str(want.dtype).removeprefix("torch.")
+            worst[name] = max(worst.get(name, 0.0), float((err / (2 * half)).max()))
+            del w, g, half, bound, err
+        self.restores.append({"step": int(extra["step"]), "restore_wall_s": restore_s, "max_err_in_steps_by_dtype": worst})
+        return tree, extra
+
+
+def d2h_rates(device) -> dict:
+    """GB/s of one 2.5 GB device-to-host copy into pageable and into pinned host memory
+    (a checkpoint's snapshot copies into pageable memory)."""
+    import torch
+
+    src = torch.empty(620_756_992, dtype=torch.float32, device=device)  # the size of an embedding moment
+    out = {}
+    for kind, pinned in (("pageable", False), ("pinned", True)):
+        dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=pinned)
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        out[kind] = src.numel() * 4 / 1e9 / (time.perf_counter() - t0)
+        del dst
+    return out
+
+
+def spot_campaign(device) -> dict:
+    """Phase 10: SpotTrainer on the full-width model with the int8 codec; one
+    preemption, one restore."""
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.checkpoint.manager import quantized
+    from repro_torch.core import SimParams, step_trace
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.spot_trainer import SpotTrainer, SpotTrainerConfig
+    from repro_torch.train.steps import make_train_step
+
+    cfg = train_cfg()
+    opt_cfg = AdamWConfig(lr=1e-4, moment_dtype="float32")
+    shapes = T.init_params(cfg, seed=0, device="meta")
+    state_meta = (shapes, adamw_init(shapes, opt_cfg))
+    n_quantized = sum(quantized(x, "int8") for x in tree_lib.leaves(state_meta))
+    ckpt_bytes = sum((-(-x.numel() // 256)) * 260 if quantized(x, "int8") else x.numel() * x.element_size()
+                     for x in tree_lib.leaves(state_meta))
+    need = (CAMPAIGN["keep"] + 1) * ckpt_bytes
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    if free < need:
+        raise RuntimeError(f"the campaign needs {need / 1e9:.1f} GB of disk under {build}, {free / 1e9:.1f} GB are free")
+
+    def init():
+        params = T.init_params(cfg, seed=0, device=device)
+        return params, adamw_init(params, opt_cfg)
+
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_ckpt_") as ckpt_dir:
+        trainer = SpotTrainer(
+            SpotTrainerConfig(a_bid=CAMPAIGN["a_bid"], ckpt_dir=ckpt_dir, max_steps=CAMPAIGN["max_steps"],
+                              step_time_s=CAMPAIGN["step_time_s"], sim=SimParams(t_c=300.0, t_r=600.0),
+                              codec=CAMPAIGN["codec"], async_io=CAMPAIGN["async_io"], keep=CAMPAIGN["keep"]),
+            train_step=make_train_step(cfg, opt_cfg, remat=False, q_block=1024, kv_block=1024),
+            init_params=init,
+            data=TokenStream(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=11, device=device),
+            trace=step_trace(list(CAMPAIGN_TRACE)),
+        )
+        watch = CampaignWatch(trainer.mgr)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        report = trainer.run()  # the main path
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        written = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+    if not (report.completed and report.n_preemptions == 1 and report.n_restores == 1 and report.n_checkpoints >= 1):
+        raise AssertionError(f"campaign: {report}")
+    if launches["ckpt_codec"] != report.n_checkpoints * n_quantized:
+        raise AssertionError(f"campaign: ckpt_codec launched {launches['ckpt_codec']} times, expected "
+                             f"{report.n_checkpoints} checkpoints x {n_quantized} quantized leaves")
+    executed = len(report.losses)
+    if launches["flash_attention"] != executed * TRAIN_LAYERS or not all(x == x for x in report.losses):
+        raise AssertionError(f"campaign: {launches} over {executed} steps, losses {report.losses}")
+    if len(watch.restores) != 1:
+        raise AssertionError(f"campaign: {len(watch.restores)} restores checked")
+    out = {
+        "steps_done": report.steps_done, "steps_executed": executed, "virtual_time_s": report.virtual_time_s,
+        "cost": report.cost, "n_checkpoints": report.n_checkpoints, "n_preemptions": report.n_preemptions,
+        "n_restores": report.n_restores, "lease_log": report.lease_log, "wall_s": wall_s,
+        "checkpoint_bytes": ckpt_bytes, "bytes_on_disk_at_end": written, "quantized_leaves": n_quantized,
+        "launches": {k: v for k, v in launches.items() if v}, "saves": watch.saves, "restores": watch.restores,
+        "t_c_estimate_s": trainer.t_c_estimate, "losses": report.losses, "d2h_gb_per_s": d2h_rates(device),
+    }
+    print(f"campaign: completed, {report.n_checkpoints} checkpoint(s), 1 preemption, 1 restore within half a step; "
+          f"ckpt_codec launches {launches['ckpt_codec']}, wall {wall_s:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def codec_row(measured, launches) -> dict:
+    source, replaces = CODEC_SOURCE
+    return {"name": "ckpt_codec", "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": measured["max_abs_err"], "ms": measured["ms"], "plain_ms": measured["plain_ms"],
+            "bound_ms": measured["bound_ms"], "bound_by": measured["bound_by"], "library_ms": None,
+            "wrapper_ms": measured["wrapper_ms"], "match": True, "shape": measured["shape"], "dtype": measured["dtype"],
+            "leaves_checked": measured["leaves_checked"], "bf16_leaf": measured["bf16_leaf"]}
+
+
 def main() -> int:
     import torch
 
@@ -790,10 +1294,31 @@ def main() -> int:
     # -- 6. serving at full width -------------------------------------------
     found = serve_models(device)
 
-    # -- 7. the kernels line --------------------------------------------------
-    print(json.dumps({"kernels": [sweep_row, *model_kernel_rows(found, small_errs)]}), flush=True)
+    # -- 7. the codec kernel vs its plain version at small sizes ---------------
+    small_codec_checks(device)
 
-    # -- 8. the result line -------------------------------------------------
+    # -- 8. training through the kernels at small sizes -----------------------
+    small_train = small_training_checks(device)
+
+    # -- 9. training at full width --------------------------------------------
+    training, codec_measured = train_full_width(device)
+
+    # -- 10. the spot campaign at full width ----------------------------------
+    campaign = spot_campaign(device)
+    print(json.dumps({"training": {"card": card, **training, "campaign": campaign, "small": small_train}}), flush=True)
+
+    # -- 11. the kernels line -------------------------------------------------
+    rows = model_kernel_rows(found, small_errs)
+    for row in rows:
+        extra = campaign["launches"].get(row["name"], 0) + (
+            TRAIN_STEPS * training["flash_attention_launches_per_step"] if row["name"] == "flash_attention" else 0)
+        if extra:
+            row["launches_by_path"] = {"serving": row["launches"], "training": extra}
+            row["launches"] += extra
+    codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
+    print(json.dumps({"kernels": [sweep_row, *rows, codec]}), flush=True)
+
+    # -- 12. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

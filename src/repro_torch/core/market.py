@@ -141,6 +141,21 @@ class PriceTrace:
     def horizon(self) -> float:
         return float(self.times[-1])
 
+    def segment_index(self, t: float) -> int:
+        """Index of the segment containing time ``t``."""
+        i = int(np.searchsorted(self.times, t, side="right")) - 1
+        return min(max(i, 0), len(self.prices) - 1)
+
+    def price_at(self, t: float) -> float:
+        return float(self.prices[self.segment_index(t)])
+
+    def next_change(self, t: float) -> float:
+        """First segment boundary strictly after ``t`` (or horizon)."""
+        i = int(np.searchsorted(self.times, t, side="right"))
+        if i >= len(self.times):
+            return self.horizon
+        return float(self.times[i])
+
     def available_periods(self, bid: float) -> list[tuple[float, float]]:
         """Maximal intervals where ``price <= bid`` (instance can run).
 

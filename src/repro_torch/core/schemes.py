@@ -143,3 +143,10 @@ class FailurePdf:
             cached = np.concatenate([tab[: top + 1], [self.censored]]), top
             object.__setattr__(self, "_compact_survival", cached)  # frozen-safe
         return cached
+
+
+def decision_points(hour_boundary: float, params: SimParams) -> tuple[float, float]:
+    """(t_cd, t_td) for one instance-hour boundary (Eq. 3 and Eq. 4)."""
+    t_cd = hour_boundary - params.t_c - params.t_w
+    t_td = hour_boundary - params.t_w
+    return t_cd, t_td

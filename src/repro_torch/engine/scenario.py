@@ -279,6 +279,24 @@ class Scenario:
                 k += 1
         return cells
 
+    def materialize_cell(self, market: int) -> MarketCell:
+        """Resolve one market cell without generating the whole grid.
+
+        Equal to ``materialize()[market]``: generated traces come from the
+        same :func:`sample_traces_batch` streams, which are deterministic per
+        (model, seed) whatever the batch holds.  Feeds one live run
+        (``SpotTrainer.from_scenario``).
+        """
+        if self.traces is not None:
+            labels = self.labels or tuple(f"trace{i}" for i in range(len(self.traces)))
+            return MarketCell(labels[market], 0, self.traces[market])
+        it = self.instances[market // len(self.seeds)]
+        seed = self.seeds[market % len(self.seeds)]
+        trace = sample_traces_batch(
+            [TraceModel.for_instance(it)], self.horizon_days * 24 * HOUR, [ensemble_seed(it, seed)]
+        )[0]
+        return MarketCell(it.name, seed, trace, it.on_demand)
+
     def market_bids(self, market: MarketCell) -> tuple[float, ...]:
         """Absolute $/h bids for one market cell (scaled when
         ``bid_fractions`` is set; the $0.001 grid rounding matches the

@@ -6,6 +6,16 @@ cannot run), allocates the outputs and binds the C function's arguments into a
 :class:`Launch`; its ``launch`` calls the C function, raises on a nonzero
 ``cudaGetLastError()`` and counts the launch.  A caller timing a kernel puts
 only ``launch`` between its events.
+
+The model kernels have no backward of their own (nor do the TPU kernels they
+replace: the JAX package differentiates through its plain references).  Each
+is wrapped in a ``torch.autograd.Function`` whose forward is the kernel launch
+and whose backward recomputes the plain version on the saved inputs
+(:func:`recompute_grads`).  This is no fallback: the kernel always runs the
+forward, and the plain version only gives the gradient.  A kernel's output is
+a fresh tensor with no ``grad_fn``, so :func:`check_graph` makes ``prepare``
+raise when it is reached outside its Function with inputs that require grad:
+the gradient would stop there without an error.
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-PTR, I64, F32, F64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
+PTR, I32, I64, F32, F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 
 
 class Launch(NamedTuple):
@@ -61,6 +71,36 @@ def check(name, x, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_graph(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: the launch is
+    then outside its ``torch.autograd.Function`` (whose forward runs with grad
+    mode off), and its output would cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel was reached with inputs that require grad outside its autograd "
+            "Function; its output would carry no gradient"
+        )
+
+
+def recompute_grads(plain: Callable, saved: Sequence[torch.Tensor], needs: Sequence[bool],
+                    grad_outputs: Sequence, **kw) -> tuple:
+    """The backward of a kernel's Function: ``plain(*saved, **kw)`` again on
+    detached copies of the saved inputs, with grad mode on, and the gradients
+    of its outputs (weighted by ``grad_outputs``; ``None`` for an output that
+    took no gradient) with respect to the inputs marked in ``needs``.  Returns
+    one gradient or ``None`` per input."""
+    inputs = [t.detach().requires_grad_(bool(n)) for t, n in zip(saved, needs)]
+    with torch.enable_grad():
+        outs = plain(*inputs, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+    wrt = [t for t in inputs if t.requires_grad]
+    if not wrt or not pairs:
+        return tuple(None for _ in inputs)
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs], allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in inputs)
 
 
 def require_cuda(name: str, x: torch.Tensor) -> torch.device:

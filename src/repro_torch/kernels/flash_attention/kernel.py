@@ -12,6 +12,13 @@ kernel runs there.  Nothing falls back from the kernel to the plain version.
 :func:`flash_attention` is :func:`prepare` (input checks, output allocation)
 followed by :func:`launch` (the bare launch); :data:`launches` counts the
 kernel's launches in this process.
+
+On CUDA the launch runs inside :class:`FlashAttention`, a
+``torch.autograd.Function`` whose backward recomputes
+:func:`~repro_torch.kernels.flash_attention.ref.block_attention` (with the
+forward's ``q_block`` / ``kv_block`` and mask arguments) and differentiates
+it.  This is no fallback: the kernel always runs the forward.  :func:`prepare`
+raises when it is reached outside the Function with inputs that require grad.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import F32, I64, PTR, Launch, c_function, call, check, require_cuda, stream
+from repro_torch.kernels._launch import (
+    F32, I64, PTR, Launch, c_function, call, check, check_graph, recompute_grads, require_cuda, stream,
+)
 from repro_torch.kernels.flash_attention import ref
 
 #: Kernel launches in this process (incremented once per launch, nowhere else).
@@ -47,13 +56,30 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, q_block=1024,
         return ref.block_attention(
             q, k, v, causal=causal, window=window, q_block=q_block, kv_block=kv_block, q_offset=q_offset
         )
-    return launch(prepare(q, k, v, causal=causal, window=window, q_offset=q_offset))
+    return FlashAttention.apply(q, k, v, causal, window, q_offset, q_block, kv_block)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel.  Backward: the gradient of the plain version,
+    recomputed on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_block, kv_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, q_block=q_block, kv_block=kv_block)
+        return launch(prepare(q, k, v, causal=causal, window=window, q_offset=q_offset))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_grads(ref.block_attention, ctx.saved_tensors, ctx.needs_input_grad[:3], (grad_out,), **ctx.kw)
+        return (*grads, None, None, None, None, None)
 
 
 def prepare(q, k, v, *, causal=True, window=0, q_offset=0) -> Launch:
     """Check the CUDA inputs of :func:`flash_attention`, allocate its output
     and bind the launch's arguments; raises on anything the kernel cannot run."""
     dev = require_cuda("flash_attention", q)
+    check_graph("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-d (B, S, heads, D), got {tuple(q.shape)} and {tuple(k.shape)}")
     B, Sq, H, D = q.shape

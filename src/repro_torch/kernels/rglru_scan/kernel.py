@@ -10,13 +10,21 @@ the TPU kernel does.
 
 :func:`rglru_scan` is :func:`prepare` followed by :func:`launch`;
 :data:`launches` counts the kernel's launches in this process.
+
+On CUDA the launch runs inside :class:`RGLRUScan`, a
+``torch.autograd.Function`` whose backward recomputes
+:func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan` and differentiates it.
+This is no fallback: the kernel always runs the forward.  :func:`prepare`
+raises when it is reached outside the Function with inputs that require grad.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import I64, PTR, Launch, c_function, call, check, require_cuda, stream
+from repro_torch.kernels._launch import (
+    I64, PTR, Launch, c_function, call, check, check_graph, recompute_grads, require_cuda, stream,
+)
 from repro_torch.kernels.rglru_scan import ref
 
 #: Kernel launches in this process (incremented once per launch, nowhere else).
@@ -30,13 +38,29 @@ def rglru_scan(log_a, gated_x):
     """Returns h ``(B, S, W)`` and h_last ``(B, W)``, both float32."""
     if log_a.device.type == "cpu":
         return ref.rglru_scan(log_a, gated_x)
-    return launch(prepare(log_a, gated_x))
+    return RGLRUScan.apply(log_a, gated_x)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """Forward: the kernel.  Backward: the gradient of the plain scan,
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, log_a, gated_x):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(log_a, gated_x)
+        return launch(prepare(log_a, gated_x))
+
+    @staticmethod
+    def backward(ctx, grad_h, grad_h_last):
+        return recompute_grads(ref.rglru_scan, ctx.saved_tensors, ctx.needs_input_grad, (grad_h, grad_h_last))
 
 
 def prepare(log_a, gated_x) -> Launch:
     """Check the CUDA inputs of :func:`rglru_scan`, allocate its outputs and
     bind the launch's arguments; raises on anything the kernel cannot run."""
     dev = require_cuda("rglru_scan", log_a)
+    check_graph("rglru_scan", log_a, gated_x)
     if log_a.dim() != 3:
         raise ValueError(f"log_a must be (B, S, W), got {tuple(log_a.shape)}")
     B, S, W = log_a.shape

@@ -10,13 +10,21 @@ TPU kernel does.
 
 :func:`ssm_scan` is :func:`prepare` followed by :func:`launch`;
 :data:`launches` counts the kernel's launches in this process.
+
+On CUDA the launch runs inside :class:`SSMScan`, a ``torch.autograd.Function``
+whose backward recomputes :func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan`
+and differentiates it.  This is no fallback: the kernel always runs the
+forward.  :func:`prepare` raises when it is reached outside the Function with
+inputs that require grad.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import I64, PTR, Launch, c_function, call, check, require_cuda, stream
+from repro_torch.kernels._launch import (
+    I64, PTR, Launch, c_function, call, check, check_graph, recompute_grads, require_cuda, stream,
+)
 from repro_torch.kernels.ssm_scan import ref
 
 #: Kernel launches in this process (incremented once per launch, nowhere else).
@@ -35,13 +43,29 @@ def ssm_scan(dtA, dBx, C):
     """Returns y ``(B, S, D)`` and h_last ``(B, D, N)``, both float32."""
     if dtA.device.type == "cpu":
         return ref.ssm_scan(dtA, dBx, C)
-    return launch(prepare(dtA, dBx, C))
+    return SSMScan.apply(dtA, dBx, C)
+
+
+class SSMScan(torch.autograd.Function):
+    """Forward: the kernel.  Backward: the gradient of the plain scan,
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, dtA, dBx, C):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dtA, dBx, C)
+        return launch(prepare(dtA, dBx, C))
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h_last):
+        return recompute_grads(ref.ssm_scan, ctx.saved_tensors, ctx.needs_input_grad, (grad_y, grad_h_last))
 
 
 def prepare(dtA, dBx, C) -> Launch:
     """Check the CUDA inputs of :func:`ssm_scan`, allocate its outputs and
     bind the launch's arguments; raises on anything the kernel cannot run."""
     dev = require_cuda("ssm_scan", dtA)
+    check_graph("ssm_scan", dtA, dBx, C)
     if dtA.dim() != 4:
         raise ValueError(f"dtA must be (B, S, D, N), got {tuple(dtA.shape)}")
     B, S, D, N = dtA.shape

@@ -10,7 +10,9 @@ names, shapes and dtypes::
 [-2, 2] times ``std = 1 / sqrt(fan_in)`` (or a given scale) from an explicit
 ``torch.Generator`` on the target device.  The numbers differ from
 ``jax.random``'s for the same seed; :func:`from_jax` carries the JAX
-package's own init across instead, for the tests that compare the two.
+package's own init across instead, for the tests that compare the two, and
+:func:`state_from_jax` the whole training state a checkpoint holds
+(parameters and the AdamW state ``{"mu", "nu", "step"}``).
 """
 
 from __future__ import annotations
@@ -73,10 +75,11 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
-def from_jax(cfg, params_np: dict, device) -> dict:
+def from_jax(cfg, params_np: dict, device, *, dtype: torch.dtype | None = None) -> dict:
     """The JAX package's parameters (its pytree with numpy leaves) as the
     port's, on ``device``.  Raises unless every name, shape and dtype is the
-    one the port's own init makes for ``cfg``."""
+    one the port's own init makes for ``cfg`` (every dtype ``dtype`` when it
+    is given: an optimizer moment tree)."""
     from repro_torch.models.transformer import init_params
 
     want = init_params(cfg, seed=0, device="meta")
@@ -88,7 +91,7 @@ def from_jax(cfg, params_np: dict, device) -> dict:
         out = {}
         for name, w in spec.items():
             t = _tensor(np.asarray(got[name]))
-            if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+            if tuple(t.shape) != tuple(w.shape) or t.dtype != (dtype or w.dtype):
                 raise ValueError(
                     f"{where}{name}: {t.dtype}{tuple(t.shape)} differs from the port's {w.dtype}{tuple(w.shape)}"
                 )
@@ -102,3 +105,20 @@ def from_jax(cfg, params_np: dict, device) -> dict:
     out = carry(top, {k: v for k, v in want.items() if k != "layers"}, "")
     out["layers"] = [carry(p, w, f"layers[{i}].") for i, (p, w) in enumerate(zip(layers, want["layers"]))]
     return out
+
+
+def state_from_jax(cfg, params_np: dict, opt_state_np: dict, device) -> tuple[dict, dict]:
+    """The JAX package's ``(params, opt_state)`` (numpy leaves) as the port's,
+    on ``device``: the moments ``mu`` / ``nu`` carry like the parameters, in
+    their own dtype (float32 or bfloat16, one for every leaf), and ``step`` is
+    an int32 scalar."""
+    params = from_jax(cfg, params_np, device)
+    moments = {}
+    for name in ("mu", "nu"):
+        tree = opt_state_np[name]
+        dtype = _tensor(np.asarray(tree["embed.tokens"])).dtype
+        moments[name] = from_jax(cfg, tree, device, dtype=dtype)
+    step = _tensor(np.asarray(opt_state_np["step"]))
+    if step.dtype != torch.int32 or step.shape != ():
+        raise ValueError(f"step is {step.dtype}{tuple(step.shape)}, expected an int32 scalar")
+    return params, {**moments, "step": step.to(device)}

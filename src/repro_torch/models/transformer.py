@@ -1,4 +1,4 @@
-"""Config-driven assembly of the dense, hybrid and Mamba-1 families: the serving path.
+"""Config-driven assembly of the dense, hybrid and Mamba-1 families: serving and training.
 
 The port of :mod:`repro.models.transformer` for families ``dense``,
 ``hybrid`` (RG-LRU + local attention) and ``ssm`` (Mamba-1); the others
@@ -6,17 +6,26 @@ raise ``NotImplementedError``.  Layers are a list of per-layer param dicts
 applied in a Python loop, as there.
 
 Public API: :func:`layer_kinds`, :func:`init_params`, :func:`forward`,
-:func:`init_cache`, :func:`prefill`, :func:`decode_step`.  Every entry point
+:func:`loss_fn`, :func:`init_cache`, :func:`prefill`, :func:`decode_step`.  Every entry point
 runs on the GPU unless it is given ``device="cpu"`` (and raises without a GPU
 otherwise); the parameters must lie on that device.  ``impl="plain"`` runs
 the plain PyTorch versions of the prefill kernels (flash attention, SSM scan,
 RG-LRU scan) where the kernels would run.  Decode is plain on every device,
 as in the JAX package.  The cache's ``len`` is a Python int.
+
+Training differentiates through the kernels: each runs inside a
+``torch.autograd.Function`` whose backward recomputes its plain version (see
+:mod:`repro_torch.kernels._launch`).  ``forward(..., remat=True)``
+checkpoints each layer (``torch.utils.checkpoint``, non-reentrant), as the
+JAX package's ``jax.checkpoint`` per layer does.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as activation_checkpoint
 
 from repro_torch.engine.base import resolve_device
 from repro_torch.kernels import check_impl
@@ -117,15 +126,38 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, q_block, kv_block, 
     return x + L.apply_mlp(cfg, p, "mlp", L.apply_norm(cfg, p, "norm2", x)), state
 
 
+def _layer_output(cfg: ModelConfig, kind: str, p: dict, x, *, q_block, kv_block, impl):
+    return _apply_layer(cfg, kind, p, x, q_block=q_block, kv_block=kv_block, impl=impl)[0]
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *, q_block: int = 1024, kv_block: int = 1024,
-            impl=None, device=None):
-    """Logits ``(B, S, V_pad)`` of a full forward over ``batch["tokens"]``."""
+            remat: bool = False, impl=None, device=None):
+    """Logits ``(B, S, V_pad)`` of a full forward over ``batch["tokens"]``.
+    ``remat``: keep only each layer's input for the backward and recompute
+    the layer there."""
     check_impl(impl)
     dev = _device(params, device)
     x = L.embed_tokens(cfg, params, torch.as_tensor(batch["tokens"], device=dev))
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        x, _ = _apply_layer(cfg, kind, p, x, q_block=q_block, kv_block=kv_block, impl=impl)
+        fn = functools.partial(_layer_output, cfg, kind, q_block=q_block, kv_block=kv_block, impl=impl)
+        x = activation_checkpoint.checkpoint(fn, p, x, use_reentrant=False) if remat else fn(p, x)
     return L.unembed(cfg, params, L.apply_norm(cfg, params, "final_norm", x))
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **fw_kwargs):
+    """Next-token cross-entropy over ``batch["labels"]`` (labels < 0 are
+    ignored), with the log-sum-exp in float32.  Returns ``(loss, metrics)``
+    with metrics ``loss`` and ``nll``.  ``fw_kwargs`` go to :func:`forward`."""
+    logits = forward(cfg, params, batch, **fw_kwargs)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    valid = labels >= 0
+    labels_c = torch.clamp_min(labels, 0).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = torch.gather(logits, -1, labels_c[..., None])[..., 0].float()
+    nll = (lse - label_logit) * valid.float()
+    n_valid = torch.clamp_min(valid.sum(), 1)
+    loss = nll.sum() / n_valid
+    return loss, {"loss": loss, "nll": nll.sum() / n_valid}
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ The engine records its phases (``engine.run`` / ``grid`` / ``sim`` /
 ``bill``) as spans, the source of
 :class:`repro_torch.engine.base.PhaseTimings`; the kernel build records
 each ``nvcc`` build in the :mod:`~repro_torch.obs.retrace` registry under
-scope ``torch_port.build``.
+scope ``torch_port.build``.  The spot trainer records the monitoring
+events and its leases as simulation-time events (``tel.events``) and counts
+checkpoints, preemptions, restores and fallbacks.
 """
 
 from repro_torch.obs.retrace import (
@@ -23,12 +25,13 @@ from repro_torch.obs.retrace import (
     retrace_guard,
     trace_count,
 )
-from repro_torch.obs.telemetry import NULL, Span, Telemetry, activate, current
+from repro_torch.obs.telemetry import NULL, SimEvent, Span, Telemetry, activate, current
 
 __all__ = [
     "NULL",
     "RetraceError",
     "RetraceGuard",
+    "SimEvent",
     "Span",
     "Telemetry",
     "activate",

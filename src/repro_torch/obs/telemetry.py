@@ -1,4 +1,7 @@
-"""Telemetry core: hierarchical wall-clock spans and monotonic counters.
+"""Telemetry core: hierarchical wall-clock spans, monotonic counters, and
+simulation-time events (the paper's monitoring events ``E_ckpt`` /
+``E_terminate`` / ``E_launch`` and the trainer's lease records, stamped with
+virtual time).
 
 Instrumented code never takes a telemetry object as an argument: it calls
 :func:`current`, which returns the innermost *activated* collector or the
@@ -17,7 +20,7 @@ import threading
 import time
 from typing import Any, Iterator
 
-__all__ = ["NULL", "Span", "Telemetry", "activate", "current"]
+__all__ = ["NULL", "SimEvent", "Span", "Telemetry", "activate", "current"]
 
 
 @dataclasses.dataclass
@@ -45,6 +48,16 @@ class Span:
             yield self
         for c in self.children:
             yield from c.find(name)
+
+
+@dataclasses.dataclass
+class SimEvent:
+    """One simulation-time event (e.g. ``E_ckpt`` at virtual second 3600)."""
+
+    name: str
+    t: float  # simulation seconds
+    attrs: dict[str, Any]
+    wall: float  # seconds since the collector's epoch, for correlation
 
 
 class _NullSpanCtx:
@@ -99,6 +112,7 @@ class Telemetry:
         self.epoch = time.perf_counter()
         self.spans: list[Span] = []  # root spans, in emission order
         self.counters: dict[str, float] = {}
+        self.events: list[SimEvent] = []
         # span nesting is tracked per thread, so spans from several threads
         # never interleave their nesting; counter updates take the lock
         self._local = threading.local()
@@ -124,6 +138,10 @@ class Telemetry:
         """Current value of counter ``name`` (0 when never incremented)."""
         return self.counters.get(name, 0)
 
+    def event(self, name: str, t: float, **attrs) -> None:
+        """Record a simulation-time event (``t`` in simulation seconds)."""
+        self.events.append(SimEvent(name=name, t=float(t), attrs=attrs, wall=time.perf_counter() - self.epoch))
+
     def __enter__(self) -> "Telemetry":
         _ACTIVE.append(self)
         return self
@@ -142,6 +160,9 @@ class _NullTelemetry(Telemetry):
         return _NULL_SPAN_CTX
 
     def count(self, name: str, value: float = 1) -> None:
+        pass
+
+    def event(self, name: str, t: float, **attrs) -> None:
         pass
 
     def __enter__(self):

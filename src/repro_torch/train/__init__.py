@@ -1,1 +1,1 @@
-"""Training-side helpers of the port (so far only greedy sampling)."""
+"""Training and serving runtime: step factories and the SpotTrainer control loop."""

@@ -68,3 +68,37 @@ def test_refuses_to_run_without_a_gpu(smoke, capsys):
     assert smoke.main() == 2
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_codec_bound_and_cases(smoke):
+    emb = torch.empty((151552, 4096), device="meta", dtype=torch.bfloat16)
+    ms, by = smoke.codec_bound(emb)
+    n = 151552 * 4096
+    assert by == "bytes" and ms == pytest.approx(1e3 * (2 * n + n // 256 * 260) / 3.35e12)  # ~0.559 ms
+    assert smoke.codec_bound(torch.empty(257, device="meta"))[0] == pytest.approx(1e3 * (4 * 257 + 2 * 260) / 3.35e12)
+    assert {1, 255, 256, 257, 1000, 4096, (1 << 20) + 3} <= set(smoke.CODEC_SIZES)
+    assert "ckpt_codec" in smoke.kernel_wrappers()
+
+
+def test_training_config_is_glm4_at_its_published_widths(smoke):
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.checkpoint.manager import quantized
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = smoke.train_cfg()
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab_size, cfg.rope_theta) == (
+        4096, 32, 2, 128, 13696, 151552, 1e6)
+    assert cfg.n_layers == smoke.TRAIN_LAYERS == 4 and cfg.dtype == "bfloat16"
+    params = T.init_params(cfg, seed=0, device="meta")
+    n = sum(x.numel() for x in tree_lib.leaves(params))
+    embed = 2 * 151552 * 4096
+    assert n - embed == 4 * 203_956_224 + 4096  # four layers of 203.96 M (norms included) + the final norm
+    assert n == pytest.approx(2.057e9, rel=1e-3)
+    state = (params, adamw_init(params, AdamWConfig(moment_dtype="float32")))
+    # bf16 weights and float32 mu / nu: 10 bytes a parameter (12 with the bf16 gradients of a step)
+    assert sum(x.numel() * x.element_size() for x in tree_lib.leaves(state)) == 10 * n + 4
+    ckpt = sum(-(-x.numel() // 256) * 260 for x in tree_lib.leaves(state) if quantized(x, "int8"))
+    assert ckpt == pytest.approx(6.27e9, rel=1e-3)  # the int8 checkpoint
+    assert sum(quantized(x, "int8") for x in tree_lib.leaves(state)) == 3 * 39  # params, mu, nu; not the step
+    assert smoke.CAMPAIGN["codec"] == "int8" and smoke.CAMPAIGN["keep"] == 2

@@ -7,7 +7,11 @@ kernel must equal the plain version's bit for bit (NaN pads included): both do
 the same IEEE float64 + − × ÷ and compares, and the kernel is built with
 ``--fmad=false``.  The model kernels (flash attention, SSM and RG-LRU scans)
 are held to their plain versions within the JAX tests' tolerances, and the
-smoke-size models to their plain path.  Run them on the card with
+smoke-size models to their plain path.  The checkpoint codec must equal its
+plain version bit for bit (q and scales; NaN scales where the plain version's
+are NaN), and gradients through the model kernels' autograd Functions must
+equal the plain path's (their backward recomputes the plain version).  Run
+them on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
 
@@ -230,3 +234,143 @@ def test_smoke_models_on_the_card_match_their_plain_path(cuda, arch):
     close(logits, plain, 2e-2)
     step, _ = T.decode_step(cfg, params, logits[:, -1].argmax(-1, keepdim=True), cache)
     assert torch.isfinite(step.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# The checkpoint codec, and training through the kernels
+# ---------------------------------------------------------------------------
+
+
+def codec_equal(got, want):
+    (q, s, shape), (q2, s2, shape2) = got, want
+    assert shape == shape2 and q.shape == q2.shape and q.dtype == q2.dtype == torch.int8
+    nan = torch.isnan(s2)
+    assert torch.equal(torch.isnan(s), nan)
+    assert torch.equal(s[~nan].view(torch.int32), s2[~nan].view(torch.int32))
+    assert torch.equal(q[~nan], q2[~nan])  # q of a NaN block is undefined in both
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4096, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["f32", "bf16", "f16"])
+def test_ckpt_codec_matches_plain_version_bitwise(cuda, n, dtype):
+    from repro_torch.kernels.ckpt_codec import kernel as codec, ref as codec_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.randn(n, generator=gen, device=cuda) * 3).to(dtype)
+    if n > 600:
+        x[256:512] = 0  # an all-zero block
+        x[512] = float("nan")  # a NaN block
+    before = codec.launches
+    got = codec.quantize(x)
+    torch.cuda.synchronize()
+    assert codec.launches == before + 1
+    codec_equal(got, codec_ref.quantize(x))
+
+
+def test_ckpt_codec_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.ckpt_codec import kernel as codec
+
+    with pytest.raises(TypeError):
+        codec.prepare(torch.zeros(512, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        codec.prepare(torch.zeros((64, 64), device=cuda).t())
+    with pytest.raises(ValueError, match="16-byte"):
+        codec.prepare(torch.zeros(1024, device=cuda)[1:])
+    with pytest.raises(ValueError, match="empty"):
+        codec.prepare(torch.zeros(0, device=cuda))
+
+
+def test_checkpoint_int8_quantizes_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.ckpt_codec import kernel as codec
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tree = {"w": torch.randn((300, 70), generator=gen, device=cuda).to(torch.bfloat16),
+            "m": torch.randn(5000, generator=gen, device=cuda), "small": torch.randn(10, device=cuda)}
+    before = codec.launches
+    mgr = CheckpointManager(str(tmp_path / "card"), codec_name="int8")
+    mgr.save(1, tree)
+    assert codec.launches == before + 2
+    cpu = CheckpointManager(str(tmp_path / "cpu"), codec_name="int8")
+    cpu.save(1, {k: v.cpu() for k, v in tree.items()})
+    restored, _ = mgr.restore(tree)
+    restored_cpu, _ = cpu.restore({k: v.cpu() for k, v in tree.items()})
+    for k in tree:
+        assert restored[k].device.type == "cuda" and restored[k].dtype == tree[k].dtype
+        assert torch.equal(restored[k].cpu(), restored_cpu[k])
+
+
+def test_prepare_refuses_grad_inputs_outside_the_function(cuda):
+    q = torch.randn((1, 64, 4, 16), device=cuda, requires_grad=True)
+    k = torch.randn((1, 64, 2, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="outside its autograd Function"):
+        flash.prepare(q, k, k)
+    with pytest.raises(RuntimeError, match="outside its autograd Function"):
+        ssm.prepare(torch.zeros((1, 4, 2, 2), device=cuda, requires_grad=True), torch.zeros((1, 4, 2, 2), device=cuda),
+                    torch.zeros((1, 4, 2), device=cuda))
+    with pytest.raises(RuntimeError, match="outside its autograd Function"):
+        rglru.prepare(torch.zeros((1, 4, 2), device=cuda, requires_grad=True), torch.zeros((1, 4, 2), device=cuda))
+    with torch.no_grad():
+        flash.launch(flash.prepare(q, k, k))
+
+
+def _grads(fn, inputs, weights):
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward([o for o, w in zip(outs, weights) if w is not None], [w for w in weights if w is not None])
+    return [x.grad for x in xs]
+
+
+def test_gradients_through_the_functions_equal_the_plain_versions(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    r = lambda *s: torch.randn(s, generator=gen, device=cuda)  # noqa: E731
+    q, k, v, w = r(2, 100, 8, 64), r(2, 100, 2, 64), r(2, 100, 2, 64), r(2, 100, 8, 64)
+    for window in (0, 30):
+        kw = dict(causal=True, window=window, q_block=32, kv_block=32)
+        before = flash.launches
+        got = _grads(lambda *a: flash.flash_attention(*a, **kw), (q, k, v), (w,))
+        assert flash.launches == before + 1
+        want = _grads(lambda *a: flash_ref.block_attention(*a, **kw), (q, k, v), (w,))
+        for g, ww in zip(got, want):
+            torch.testing.assert_close(g, ww, rtol=1e-6, atol=1e-6)
+    log_a, gx = -torch.nn.functional.softplus(r(2, 33, 40)), r(2, 33, 40)
+    weights = (r(2, 33, 40), r(2, 40))
+    got = _grads(rglru.rglru_scan, (log_a, gx), weights)
+    want = _grads(rglru_ref.rglru_scan, (log_a, gx), weights)
+    for g, ww in zip(got, want):
+        torch.testing.assert_close(g, ww, rtol=1e-6, atol=1e-6)
+    dtA, dBx, C = -torch.nn.functional.softplus(r(2, 21, 8, 4)), r(2, 21, 8, 4), r(2, 21, 4)
+    weights = (r(2, 21, 8), None)
+    got = _grads(ssm.ssm_scan, (dtA, dBx, C), weights)
+    want = _grads(ssm_ref.ssm_scan, (dtA, dBx, C), weights)
+    for g, ww in zip(got, want):
+        torch.testing.assert_close(g, ww, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "recurrentgemma-9b", "falcon-mamba-7b"])
+def test_smoke_model_gradients_through_the_kernels(cuda, arch):
+    import dataclasses
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = T.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen, device=cuda)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out = {}
+    for impl in (None, "plain"):
+        leaves, treedef = tree_lib.flatten(params)
+        wrt = [x.detach().requires_grad_(True) for x in leaves]
+        loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, q_block=16, kv_block=16, impl=impl)
+        loss.backward()
+        out[impl] = (float(loss), [x.grad for x in wrt])
+    assert out[None][0] == pytest.approx(out["plain"][0], rel=1e-5)
+    for g, gp in zip(out[None][1], out["plain"][1]):
+        assert g is not None and bool((g != 0).any())
+        scale = float(gp.abs().max())
+        assert float((g - gp).abs().max()) <= 1e-4 * scale

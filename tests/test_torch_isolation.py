@@ -59,6 +59,26 @@ def test_every_module_is_found():
         "repro_torch.models.transformer",
         "repro_torch.obs.retrace",
         "repro_torch.train.steps",
+        "repro_torch.checkpoint",
+        "repro_torch.checkpoint.manager",
+        "repro_torch.checkpoint.tree",
+        "repro_torch.core.billing",
+        "repro_torch.core.events",
+        "repro_torch.core.lifecycle",
+        "repro_torch.core.simulator",
+        "repro_torch.data",
+        "repro_torch.data.pipeline",
+        "repro_torch.faults",
+        "repro_torch.faults.plan",
+        "repro_torch.kernels.ckpt_codec.kernel",
+        "repro_torch.kernels.ckpt_codec.ops",
+        "repro_torch.kernels.ckpt_codec.ref",
+        "repro_torch.launch",
+        "repro_torch.launch.train",
+        "repro_torch.optim",
+        "repro_torch.optim.adamw",
+        "repro_torch.optim.schedule",
+        "repro_torch.train.spot_trainer",
     ):
         assert required in names
 
