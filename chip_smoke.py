@@ -9,8 +9,12 @@ Phases, in order; any failure exits nonzero and nothing is caught:
 
 1. A CUDA device is required (without one: exit 2, no result printed).  Prints
    the card's name and power limit as ``nvidia-smi`` reports them.
-2. Builds the CUDA kernels from the checkout's sources and prints the build time
-   and the compiler's register / spill report.
+2. Builds the CUDA kernels from the checkout's sources and prints the build time,
+   the compiler's register / spill report (and any wgmma serialization warning),
+   and one ``sass:`` line: the ``HGMMA`` and ``UTMALDG`` / ``UTMASTG`` / ``UBLKCP``
+   instructions in each attention and RG-LRU kernel, counted with ``cuobjdump
+   -sass`` (the toolkit's, beside ``nvcc``) on the built library.  Fails if the
+   wgmma + TMA attention kernel has no ``HGMMA``.
 3. Holds the kernel against its plain PyTorch version on the card, bit for bit on
    every output, for small studies including hand-built step-trace edge cases;
    and holds the kernel path's results on a small study against the digest of the
@@ -25,9 +29,11 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    full-width inputs with CUDA events and prints one JSON line for the engine.
 5. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
    its plain PyTorch version on the card at small shapes: causal and
-   bidirectional attention, windows, ``q_offset``, ragged lengths, GQA
-   G in {1, 4, 16}, head dims 16-256, float32 and bfloat16; scans of ragged
-   lengths on random inputs from a seed.
+   bidirectional attention, windows (one off the kv tile, one past Sk),
+   ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 16}
+   (3 divides no tile), head dims 16-256, float32 and bfloat16; scans of
+   ragged lengths and widths on random inputs from a seed, the RG-LRU scan
+   bit for bit (``torch.equal``) on both of its bodies.
 6. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
    published config (every layer, random weights from a seeded
    ``torch.Generator`` on the card): 2 requests of 4096 prompt tokens, prefill,
@@ -37,8 +43,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    RG-LRU; 64 SSM).  The same requests then go
    through the plain versions on the card (``impl="plain"``) and the
    last-token logits are compared.  Each kernel is then held against its plain
-   version, and timed, on the full-width inputs of the first layer that called
-   it, beside its bound and (attention) ``scaled_dot_product_attention``.
+   version (the RG-LRU scan bit for bit), and timed, on the full-width inputs
+   of the first layer that called it, beside its bound and (attention)
+   ``scaled_dot_product_attention``.
    Prints one ``{"serving": ...}`` line per model.
 7. Holds the checkpoint codec kernel against its plain version on the card, bit
    for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
@@ -63,7 +70,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
    restored state within half a quantization step per block of the saved
    one.  Prints one ``{"training": ...}`` line.
-11. Prints one ``{"kernels": [...]}`` line with the five kernels.
+11. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+   row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
+   for each served model).
 12. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -301,11 +310,13 @@ def sweep_bound(args, out) -> tuple[float, str]:
 #: Kernel vs plain version, atol = rtol.  Attention: the JAX tests' own tolerances
 #: (tests/kernels/test_flash_attention.py:42): 2e-6 in float32 (both sum D products
 #: and a softmax over the same keys in float32, in other orders), 2e-2 in bfloat16
-#: (the kernel rounds P to bf16 for the PV product on the tensor cores, and both round
-#: the output to bf16: they differ by a few bf16 ulps).
-#: Scans: tests/kernels/test_scans.py's 1e-4 (h rounds the same in both; y_t's
+#: (the kernel rounds P to bf16 for the PV product on the tensor cores and takes its
+#: exponentials with ex2.approx, and both round the output to bf16: they differ by a few
+#: bf16 ulps).
+#: SSM scan: tests/kernels/test_scans.py's 1e-4 (h rounds the same in both; y_t's
 #: 16-term sum over n is a shuffle tree in the kernel, PyTorch's reduction in the
-#: plain version).
+#: plain version).  The RG-LRU scan rounds every operation as its plain version does
+#: and is held bit for bit (:func:`check_equal`).
 ATTN_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 SCAN_TOL = 1e-4
 #: Last-token logits of the kernel path vs the plain path at full width (bf16):
@@ -331,7 +342,8 @@ MODEL_KERNELS = {
 }
 
 #: Small attention cases: (B, Sq, Sk, KV, G, D, causal, window, q_offset), each in
-#: float32 and bfloat16.
+#: float32 and bfloat16.  The bf16 wgmma + TMA body's tiles are 128 rows (128 // G
+#: positions) x 128 keys (64 at D = 256).
 ATTN_CASES = (
     (2, 200, 200, 2, 4, 64, True, 0, 0),  # causal GQA, ragged S (no multiple of a tile)
     (2, 256, 256, 4, 1, 64, False, 0, 0),  # bidirectional, G = 1
@@ -341,11 +353,23 @@ ATTN_CASES = (
     (1, 64, 320, 1, 16, 256, True, 96, 256),  # q_offset with a window, D = 256
     (2, 77, 77, 2, 2, 16, True, 0, 0),  # D = 16 (the smoke configs'), ragged
     (1, 150, 150, 1, 16, 256, True, 0, 0),  # D = 256 causal, ragged
+    (1, 333, 333, 2, 3, 128, True, 0, 0),  # G = 3 (H = 6, KV = 2): 42 positions, 126 of 128 rows
+    (2, 257, 257, 2, 4, 128, True, 0, 0),  # G = 4, one row past a tile
+    (1, 200, 455, 1, 2, 64, True, 100, 255),  # Sk > Sq with q_offset; window off the kv tile; G = 2
+    (2, 130, 130, 2, 1, 256, True, 300, 0),  # window > Sk; G = 1 at D = 256
+    (1, 129, 300, 1, 4, 256, True, 70, 171),  # window 70 (kv tile 64), q_offset, D = 256
+    (1, 190, 190, 1, 16, 128, False, 77, 0),  # bidirectional with a window, G = 16
 )
 #: Small scan cases: SSM (B, S, D, N, C dtype) and RG-LRU (B, S, W); no S is a multiple
-#: of the steps a thread loads ahead (4 and 8).
+#: of the steps a thread loads ahead (4 and 8) or of the RG-LRU chunk (64 steps).  RG-LRU
+#: widths that are multiples of 4 take its TMA body (32 channels a block; 100 and 36 are
+#: no multiple of 32), the others (130, 5) its per-channel body.
 SSM_CASES = ((2, 77, 40, 16, "float32"), (1, 301, 24, 4, "bfloat16"), (2, 5, 8, 2, "float32"))
-RGLRU_CASES = ((2, 77, 96), (1, 1001, 130), (3, 9, 5))
+RGLRU_CASES = ((2, 77, 96), (1, 1001, 130), (3, 9, 5), (2, 333, 100), (1, 4100, 36))
+#: Instructions counted in the kernels' SASS, and the kernels whose counts phase 2 prints.
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
+SASS_KERNELS = ("flash_attention_tma_kernel", "flash_attention_mma_kernel", "rglru_scan_tma_kernel",
+                "rglru_scan_kernel")
 
 
 def kernel_wrappers() -> dict:
@@ -389,6 +413,61 @@ def check_close(got, want, tol, what) -> float:
     if not bool((err <= tol + tol * want.abs()).all()):
         raise AssertionError(f"{what}: max abs err {float(err.max())} beyond atol = rtol = {tol}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def check_equal(got, want, what) -> float:
+    """Fail unless ``got`` equals ``want`` bit for bit in value (``torch.equal``);
+    return the max abs error, 0.0."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs plain {want.dtype}{tuple(want.shape)}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: differs from the plain version, max abs err {float((got - want).abs().max())}")
+    return 0.0
+
+
+def sass_counts(text: str) -> dict[str, dict[str, int]]:
+    """Per function of a ``cuobjdump -sass`` listing, how many instructions of each
+    of SASS_OPS it holds."""
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        fn = re.search(r"Function\s*:\s*(\S+)", line)
+        if fn:
+            current = counts.setdefault(fn.group(1), dict.fromkeys(SASS_OPS, 0))
+        elif current is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    current[op] += 1
+    return counts
+
+
+def kernel_sass(counts: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
+    """SASS_KERNELS' counts, summed over each kernel's template instances; a kernel
+    name that is a prefix of another (``rglru_scan_kernel``) matches only itself."""
+    out = {}
+    for name in SASS_KERNELS:
+        fns = [ops for fn, ops in counts.items() if re.search(rf"\d{name}(I|E|v|$)", fn)]
+        out[name] = {"functions": len(fns), **{op: sum(ops[op] for ops in fns) for op in SASS_OPS}}
+    return out
+
+
+def print_sass(lib) -> None:
+    """Phase 2's SASS line; fails when the attention's wgmma + TMA kernel has no HGMMA."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        print(f"sass: no cuobjdump beside nvcc ({tool}); instructions not counted", flush=True)
+        return
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    per_kernel = kernel_sass(sass_counts(text))
+    print("sass:", json.dumps(per_kernel), flush=True)
+    tma = per_kernel["flash_attention_tma_kernel"]
+    if not tma["functions"] or tma["HGMMA"] == 0:
+        raise AssertionError(f"the attention's wgmma kernel has no HGMMA instruction: {tma}")
 
 
 def visible_pairs(sq, sk, causal, window, q_offset) -> int:
@@ -489,9 +568,9 @@ def small_kernel_checks(device) -> dict[str, float]:
         got, want = rglru(log_a, gx), rglru_plain(log_a, gx)
         torch.cuda.synchronize()
         for g, w, out in zip(got, want, ("h", "h_last")):
-            errs["rglru_scan"] = max(errs["rglru_scan"], check_close(g, w, SCAN_TOL, f"rglru_scan {out} {(B, S, W)}"))
-    print(f"small scans: kernel == plain within {SCAN_TOL} on {len(SSM_CASES)} SSM and {len(RGLRU_CASES)} RG-LRU cases; "
-          f"max abs err {errs}", flush=True)
+            errs["rglru_scan"] = max(errs["rglru_scan"], check_equal(g, w, f"rglru_scan {out} {(B, S, W)}"))
+    print(f"small scans: kernel == plain within {SCAN_TOL} on {len(SSM_CASES)} SSM cases and bit for bit on "
+          f"{len(RGLRU_CASES)} RG-LRU cases; max abs err {errs}", flush=True)
     return errs
 
 
@@ -590,10 +669,12 @@ def measure_kernel(name, mods, args, kw) -> dict:
     want = plain(*args, **plain_kw)
     torch.cuda.synchronize()
     if name == "flash_attention":
-        got, want, tol = (got,), (want,), ATTN_TOL[str(args[0].dtype).removeprefix("torch.")]
+        got, want = (got,), (want,)
+        err = check_close(got[0], want[0], ATTN_TOL[str(args[0].dtype).removeprefix("torch.")], "full width attention")
+    elif name == "rglru_scan":
+        err = max(check_equal(g, w, "full width rglru_scan") for g, w in zip(got, want))
     else:
-        tol = SCAN_TOL
-    err = max(check_close(g, w, tol, f"full width {name}") for g, w in zip(got, want))
+        err = max(check_close(g, w, SCAN_TOL, f"full width {name}") for g, w in zip(got, want))
     del got, want
     row = {
         "shape": [list(a.shape) for a in args],
@@ -606,6 +687,8 @@ def measure_kernel(name, mods, args, kw) -> dict:
     if name == "flash_attention":
         row["bound_ms"], row["bound_by"] = attention_bound(args[0], args[1], kw["causal"], kw["window"], kw["q_offset"])
         row["library_ms"] = sdpa_ms(*args, kw["causal"], kw["window"], kw["q_offset"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
         row.update({k: kw[k] for k in ("causal", "window", "q_offset")})
     else:
         row["bound_ms"], row["bound_by"] = scan_bound(name, args)
@@ -1208,8 +1291,9 @@ def main() -> int:
         entry = re.search(r"Compiling entry function '.*_cu_[0-9a-f]{8}\d+(\w+?_kernel)(\w*)'", line)
         if entry:  # the kernel's name and its integer template arguments
             print("  ptxas:", entry.group(1), *re.findall(r"Li(\d+)E", entry.group(2)))
-        elif "registers" in line or "spill" in line:
+        elif "registers" in line or "spill" in line or "wgmma" in line or "setmaxnreg" in line:
             print("  ptxas:   ", line.replace("ptxas info    :", "").strip())
+    print_sass(_build.library_path())
 
     # -- 3. kernel vs plain version on small studies, and the golden digest ----
     for name, sc in small_studies().items():

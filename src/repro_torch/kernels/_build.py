@@ -1,17 +1,23 @@
 """Build the port's CUDA sources into one shared library and load it with ctypes.
 
 Every ``kernels/*/csrc/*.cu`` is compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into one ``.so`` with a plain C interface.  The library is named by a digest
-of the sources and the flags, so a changed source builds a new library and
-an unchanged one is reused, also by later processes.  Builds go to
+(``sm_90a``) into one ``.so`` with a plain C interface; they share
+``kernels/hopper.cuh`` (mbarriers, TMA, and the tensor-map encoder, which is
+found through the runtime at first use, so nothing links against libcuda).
+The library is named by a digest of the sources, the header and the flags, so
+a changed source builds a new library and an unchanged one is reused, also by
+later processes.  Builds go to
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``) at first use, and each one is recorded in
 :mod:`repro_torch.obs.retrace` under scope ``torch_port.build``.
 
 ``--fmad=false`` is part of the contract, not a tuning flag: the sweep's
-results are held bit for bit against the plain PyTorch version, and a
-contracted multiply-add rounds once where the plain version rounds twice.
-Never build with ``--use_fast_math``.
+results, the RG-LRU scan's and the checkpoint codec's are held bit for bit
+against the plain PyTorch versions, and a contracted multiply-add rounds once
+where the plain version rounds twice.  Never build with ``--use_fast_math``.
+A kernel that wants a contraction or a fast intrinsic writes it out: the
+attention's softmax takes one explicit ``fmaf`` and ``ex2.approx`` per score,
+within the bf16 tolerance it is held to.
 """
 
 from __future__ import annotations
@@ -44,9 +50,13 @@ def sources() -> list[Path]:
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(KERNELS_DIR.glob("**/*.cuh"))
+
+
 def digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in [*srcs, *headers()]:
         h.update(src.relative_to(KERNELS_DIR).as_posix().encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

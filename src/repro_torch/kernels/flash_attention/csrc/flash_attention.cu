@@ -8,40 +8,71 @@
 // window), with the online softmax (m, l, acc) in float32, masked scores set to -1e30
 // (finite, as the TPU kernel does) and l clamped to 1e-37 at the end.
 //
-// Design: one block per (batch, kv head, q tile).  The G query heads of the kv head become
-// rows of the tile (rows / G query positions x G heads), so a kv tile loaded once serves
-// every head that reads it.  A loop over kv tiles inside the block takes the place of the
-// TPU's sequential grid axis; it runs only over the tiles that some row of the block sees
-// (causal and window bounds), so fully masked tiles are skipped, and partial tiles (the
-// diagonal, the window's edge, a ragged last tile) get the position mask.  Two bodies:
-//   * bfloat16 (the models' dtype): tensor cores.  128 rows and 8 warps a block, each warp
-//     16 rows, FlashAttention-2's register layout: S = Q K^T and O accumulate in float32
-//     registers through mma.sync.m16n8k16 on bf16 fragments read with ldmatrix from padded
-//     (bank-conflict-free) shared memory; the row max / sum are quad shuffles; P is rounded
-//     to bf16 for the PV product (the TPU kernel keeps it in float32: an ulp of bf16).
-//   * float32: the FMA units, 64 rows and 256 threads a block; each thread computes a
-//     column of scores for its rows and folds P V into its output column's accumulators.
+// What bounds it on this card: bf16 tensor-core operations, 4 * D per visible (q, k) pair
+// and head (Q K^T and P V) at 989 TFLOP/s.
 //
-// What bounds it on this card: bf16 tensor-core FLOPs, 4 * D per visible (q, k) pair
-// (QK^T and PV) at 989 TFLOP/s.  What the simple design leaves on the table: wgmma (the
-// only way to the full rate; mma.sync reaches a fraction of it), TMA loads of K / V
-// double-buffered against the math (here every tile is loaded, then computed, behind a
-// __syncthreads), a persistent schedule that balances the causal triangle, and, for
-// float32, any tensor-core path at all (3xTF32 could keep float32 accuracy).
+// Every body runs one block per (batch, kv head, q tile).  The G query heads of the kv head
+// are rows of the tile (rows / G query positions x G heads), so a kv tile loaded once serves
+// every head that reads it, and a tile of 128 rows spans only 128 / G positions, which keeps
+// the causal diagonal's masked work small.  A loop over kv tiles inside the block takes the
+// place of the TPU's sequential grid axis; it runs only over the tiles that some row of the
+// block sees (k_hi > q_lo - window and k_lo <= q_hi, the TPU kernel's tests), and only the
+// tiles that some row does not see in full (the diagonal, the window's edge, a ragged last
+// tile) pay for the position mask.
 //
-// Built with the rest of the port with --fmad=false; the float32 dot products use explicit
-// fmaf, so they are single-rounding FMAs all the same.
+// bfloat16, D in {64, 128, 256} (the served models' 128 and 256): warp-specialised wgmma +
+// TMA, in the shape of FlashAttention-3.
+//   * Three warpgroups.  Warpgroup 0 gives its registers back (setmaxnreg.dec to 40) and one
+//     of its threads issues TMA loads: the 128-row Q tile once (a 4-d box {64 columns, G
+//     heads, 128 / G positions, 1} over q as (B, Sq, H, D), so the GQA packing costs no
+//     index math), then K and V tiles into a ring of 2 stages, each with a full and an
+//     empty mbarrier (K and V apart, so Q K^T starts before V lands).  Warpgroups 1 and 2
+//     (setmaxnreg.inc to 232) take 64 rows each: S = Q K^T with wgmma m64nKTk16, both
+//     operands in shared memory in the 128-byte swizzle TMA writes; the online softmax on
+//     the float32 accumulators; O += P V with P rounded to bf16 in registers as the A
+//     operand and V as an MN-major B descriptor (no transpose pass).
+//   * Overlap: intra-warpgroup pipelining.  Each consumer issues tile j's Q K^T and tile
+//     j-1's P V back to back, waits for the first only, runs tile j's softmax while P V is
+//     on the tensor cores, then waits for P V and rescales O.  Chosen over ping-pong
+//     scheduling of the two warpgroups because it needs no cross-warpgroup barriers and
+//     works the same for every D; ping-pong on top of it (named barriers handing the
+//     issue of the products from one warpgroup to the other) and a third K / V stage
+//     were each measured at the served shapes and moved nothing (PERF.md).
+//   * Tiles (Q + 2 stages of K and V in shared memory): D = 64: 128 x 128 keys (80 KB);
+//     D = 128: 128 x 128 (160 KB); D = 256: 128 x 64 (192 KB; O is 128 registers a thread).
+//   * Softmax in the exp2 domain: p = ex2.approx(fmaf(s, scale * log2 e, -m * scale *
+//     log2 e)), alpha = ex2((m_old - m_new) * scale * log2 e).  The library is built with
+//     --fmad=false (the sweep's bits need it), so this one contraction is written out.  A
+//     row that has seen only masked keys keeps the plain version's value: equal weights
+//     (p = 1) where its scores are all -1e30.
+//   * Ragged edges: TMA fills out-of-bounds rows with zeros (their keys are masked; their
+//     query rows are never stored), and O leaves by TMA stores, which clip at Sq.  O is
+//     staged in the swizzled Q tile, whose reads are done by then.
+//   * Schedule: q tiles run heaviest first under a causal mask (the grid's slow axis walks
+//     q tiles from the last), so the diagonal's light tiles fill the tail.
+// bfloat16, D in {16, 32}: those rows are 32 and 64 bytes, which would need swizzle modes
+// and descriptors of their own; they keep the mma.sync body of the first port (8 warps x
+// 16 rows, ldmatrix fragments from padded shared memory).  No served model has them.
+// float32 (small checks only): the FMA units, 64 rows and 256 threads a block; its dot
+// products use explicit fmaf, so they are single-rounding FMAs under --fmad=false too.
+//
+// What this design still leaves: FP8, multicast of K / V to a cluster of q tiles, a
+// persistent grid, and an LSE output for a future backward kernel (the backward now
+// recomputes the plain version).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "../../hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // float32 body
 constexpr int kRows = 64;      // query rows (positions x heads) of a float32 block
-constexpr int kMmaWarps = 8;   // bf16 body: warps of a block, 16 rows each
+constexpr int kMmaWarps = 8;   // mma.sync body: warps of a block, 16 rows each
 constexpr int kMmaRows = 16 * kMmaWarps;
 constexpr int kMaxGroup = 64;  // largest G = H / KV (the float32 tile's rows)
 constexpr float kNegInf = -1e30f;
@@ -223,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Arg
 
 
 // ---------------------------------------------------------------------------------------
-// bfloat16 body: mma.sync tensor-core tiles
+// bfloat16 body, D in {16, 32}: mma.sync tensor-core tiles
 // ---------------------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
@@ -439,13 +470,438 @@ int launch_mma(Args a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------------------
+// bfloat16 body, D in {64, 128, 256}: warp-specialised wgmma + TMA
+// ---------------------------------------------------------------------------------------
+
+constexpr int kTmaRows = 128;     // query rows of a block: two consumer warpgroups x 64
+constexpr int kTmaThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kSwizzleRow = 128;  // bytes of a swizzled row: 64 bf16 columns
+
+template <int D>
+struct TmaTile;
+template <>
+struct TmaTile<64> {
+  static constexpr int KT = 128, STAGES = 2;
+};
+template <>
+struct TmaTile<128> {
+  static constexpr int KT = 128, STAGES = 2;
+};
+template <>
+struct TmaTile<256> {
+  static constexpr int KT = 64, STAGES = 2;
+};
+
+// Shared memory of a block, in bytes from a 1024-byte aligned base (the swizzle atom).  Q
+// (then O) and each K / V stage are D / 64 column chunks of [rows][64] bf16.
+template <int D, int KT, int STAGES>
+struct TmaLayout {
+  static constexpr int q_bytes = kTmaRows * D * 2;
+  static constexpr int kv_bytes = KT * D * 2;
+  static constexpr int k_off = q_bytes;
+  static constexpr int v_off = k_off + STAGES * kv_bytes;
+  static constexpr int bar_off = v_off + STAGES * kv_bytes;
+  static constexpr int n_bars = 1 + 4 * STAGES;  // Q full; K / V full and empty per stage
+  static constexpr int bytes = bar_off + 8 * n_bars + 1024;  // + the slack to align the base
+};
+
+struct TmaArgs {
+  int Sq, Sk, KV, G, P, n_qtiles, window, q_offset, causal;  // P: positions a q tile
+  float scale_log2;                                           // 1/sqrt(D) * log2(e)
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A wgmma descriptor of a 128-byte swizzled operand: 8-row groups 1024 bytes apart (SBO);
+// `lbo` is the distance between 64-column chunks of an MN-major operand (unused K-major).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of registers that an in-flight wgmma owns.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// d (64 x 64, float32) (+)= A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, float32) (+)= A (64 x 16, shared, K-major) * B (128 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bf16 registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 256, float32) += A (64 x 16, bf16 registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, accumulate);
+  else wgmma_ss_n128(d, a, b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  else wgmma_rs_n256(d, a, b);
+}
+
+// S = Q K^T for a consumer's 64 rows: D / 16 steps of 16 columns (32 bytes inside a
+// swizzled row; a new column chunk every 4 steps).
+template <int D, int KT>
+__device__ __forceinline__ void issue_qk(float (&s)[KT / 2], uint32_t q_addr, uint32_t k_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t a = sw128_desc(q_addr + (kk / 4) * kTmaRows * kSwizzleRow + off, 16);
+    const uint64_t b = sw128_desc(k_addr + (kk / 4) * KT * kSwizzleRow + off, 16);
+    wgmma_ss<KT>(s, a, b, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: KT / 16 steps of 16 keys; V is MN-major (D contiguous), its column chunks KT
+// rows apart.
+template <int D, int KT>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], uint32_t (&p)[KT / 4], uint32_t v_addr) {
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+    wgmma_rs<D>(o, p + 4 * kk, sw128_desc(v_addr + kk * 16 * kSwizzleRow, KT * kSwizzleRow));
+  wgmma_commit();
+}
+
+// The online softmax of one kv tile on this thread's two rows (h = 0: row r0, h = 1: row
+// r0 + 8), whose columns 8 j + 2 t (+1) lie in s[4 j + 2 h] (+1).  Leaves P in s and the
+// factor of the old O in alpha.
+template <int KT, bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             const TmaArgs& a, int k0, int t, int qp0, int qp1) {
+  if (kMask) {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        const int qp = e < 2 ? qp0 : qp1;
+        bool visible = kp < a.Sk;
+        if (a.causal) visible = visible && kp <= qp;
+        if (a.window) visible = visible && kp > qp - a.window;
+        if (!visible) s[4 * j + e] = kNegInf;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    alpha[h] = ex2((m[h] - m_new) * a.scale_log2);
+    const float neg = -(m_new * a.scale_log2);
+    const bool dead = kMask && m_new == kNegInf;  // every key so far masked: equal weights
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = dead ? 1.f : ex2(fmaf(x, a.scale_log2, neg));
+        sum += x;
+      }
+    }
+    l[h] = l[h] * alpha[h] + sum;
+    m[h] = m_new;
+  }
+}
+
+// The softmax of kv tile `i` (masked only where some row of the block does not see all of
+// it), then P rounded to bf16 as the A fragments of the P V product: columns 16 k .. 16 k
+// + 15 of S are registers 8 k .. 8 k + 7, which pack in pairs into p[4 k] .. p[4 k + 3].
+template <int KT>
+__device__ __forceinline__ void softmax_step(float (&s)[KT / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             const TmaArgs& a, int k0, int q_lo, int q_hi, int t, int qp0,
+                                             int qp1) {
+  const bool full = k0 + KT <= a.Sk && (!a.causal || k0 + KT - 1 <= q_lo) && (!a.window || k0 > q_hi - a.window);
+  if (full) softmax_tile<KT, false>(s, m, l, alpha, a, k0, t, qp0, qp1);
+  else softmax_tile<KT, true>(s, m, l, alpha, a, k0, t, qp0, qp1);
+}
+
+template <int KT>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[KT / 4], const float (&s)[KT / 2]) {
+#pragma unroll
+  for (int j = 0; j < KT / 4; ++j) {
+    const __nv_bfloat162 v2 = __floats2bfloat162_rn(s[2 * j], s[2 * j + 1]);
+    p[j] = *reinterpret_cast<const uint32_t*>(&v2);
+  }
+}
+
+template <int D, int KT, int STAGES>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_attention_tma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
+                               const TmaArgs a) {
+  using L = TmaLayout<D, KT, STAGES>;
+  constexpr int kChunks = D / 64;
+  static_assert(D % 64 == 0 && KT % 16 == 0 && (KT == 64 || KT == 128), "tile shape");
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;  // Q, then O
+  uint8_t* ks = smem + L::k_off;
+  uint8_t* vs = smem + L::v_off;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
+  const int qt = a.causal ? a.n_qtiles - 1 - (int)blockIdx.y : (int)blockIdx.y;  // heaviest first
+  const int q0 = qt * a.P;
+  const int nq = min(a.P, a.Sq - q0);
+  const int q_lo = q0 + a.q_offset, q_hi = q0 + nq - 1 + a.q_offset;
+  int k_begin = 0, k_end = a.Sk;
+  if (a.causal) k_end = min(k_end, q_hi + 1);
+  if (a.window) k_begin = max(k_begin, q_lo - a.window + 1);
+  const int t_first = k_begin / KT;
+  const int n_tiles = max(0, (k_end + KT - 1) / KT - t_first);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(k_empty + s, 8);  // one arrival per consumer warp
+      hopper::mbar_init(v_empty + s, 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);  // warp-uniform, as the compiler sees it
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_full, kChunks * a.G * a.P * kSwizzleRow);
+      for (int c = 0; c < kChunks; ++c)
+        hopper::tma_load_4d(qs + c * kTmaRows * kSwizzleRow, &q_map, q_full, c * 64, kvh * a.G, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t ph = (i / STAGES) & 1;
+        const int k0 = (t_first + i) * KT;
+        hopper::mbar_wait(k_empty + s, ph ^ 1);
+        hopper::mbar_expect_tx(k_full + s, L::kv_bytes);
+        for (int c = 0; c < kChunks; ++c)
+          hopper::tma_load_4d(ks + s * L::kv_bytes + c * KT * kSwizzleRow, &k_map, k_full + s, c * 64, kvh, k0, b);
+        hopper::mbar_wait(v_empty + s, ph ^ 1);
+        hopper::mbar_expect_tx(v_full + s, L::kv_bytes);
+        for (int c = 0; c < kChunks; ++c)
+          hopper::tma_load_4d(vs + s * L::kv_bytes + c * KT * kSwizzleRow, &v_map, v_full + s, c * 64, kvh, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each ----
+    hopper::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = cw * 64 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const int qp0 = q0 + r0 / a.G + a.q_offset, qp1 = q0 + (r0 + 8) / a.G + a.q_offset;
+    const uint32_t q_addr = hopper::smem_u32(qs) + cw * 64 * kSwizzleRow;
+    const uint32_t k_addr = hopper::smem_u32(ks), v_addr = hopper::smem_u32(vs);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    uint32_t p[KT / 4];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+
+    // S lives in fresh registers each tile (written only by wgmma before the softmax), so
+    // no instruction outside wgmma defines a wgmma's registers while another is in flight.
+    hopper::mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      {
+        float s[KT / 2];
+        hopper::mbar_wait(k_full, 0);
+        issue_qk<D, KT>(s, q_addr, k_addr);
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (lane == 0) hopper::mbar_arrive(k_empty);
+        softmax_step<KT>(s, m, l, alpha, a, t_first * KT, q_lo, q_hi, t, qp0, qp1);  // O is zero: no rescale
+        pack_p<KT>(p, s);
+      }
+      for (int i = 1; i < n_tiles; ++i) {
+        const int st = i % STAGES, sp = (i - 1) % STAGES;
+        float s[KT / 2];
+        hopper::mbar_wait(k_full + st, (i / STAGES) & 1);
+        issue_qk<D, KT>(s, q_addr, k_addr + st * L::kv_bytes);
+        hopper::mbar_wait(v_full + sp, ((i - 1) / STAGES) & 1);
+        issue_pv<D, KT>(o, p, v_addr + sp * L::kv_bytes);
+        wgmma_wait<1>();  // Q K^T of tile i is done; P V of tile i - 1 may still run
+        fence_regs(s);
+        if (lane == 0) hopper::mbar_arrive(k_empty + st);
+        softmax_step<KT>(s, m, l, alpha, a, (t_first + i) * KT, q_lo, q_hi, t, qp0, qp1);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) hopper::mbar_arrive(v_empty + sp);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+        pack_p<KT>(p, s);
+      }
+      const int last = n_tiles - 1, sl = last % STAGES;
+      hopper::mbar_wait(v_full + sl, (last / STAGES) & 1);
+      issue_pv<D, KT>(o, p, v_addr + sl * L::kv_bytes);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(v_empty + sl);
+    }
+
+    // O / l in bf16 over this warpgroup's Q rows, in the swizzled layout the TMA store reads
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      l[h] = fmaxf(l[h], 1e-37f);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;  // r % 8 == g
+        uint8_t* dst = qs + (j / 8) * kTmaRows * kSwizzleRow + r * kSwizzleRow + (((j % 8) ^ g) * 16) + t * 4;
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] / l[h], o[4 * j + 2 * h + 1] / l[h]);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int c = 0; c < kChunks; ++c)
+        hopper::tma_store_4d(&o_map, qs + c * kTmaRows * kSwizzleRow, c * 64, kvh * a.G, q0, b);
+      hopper::bulk_commit();
+      hopper::bulk_wait_all();
+    }
+  }
+}
+
+template <int D>
+int launch_tma(const Args& args, cudaStream_t stream) {
+  constexpr int KT = TmaTile<D>::KT, STAGES = TmaTile<D>::STAGES;
+  using L = TmaLayout<D, KT, STAGES>;
+  const long long B = args.B, Sq = args.Sq, Sk = args.Sk, H = args.H, KV = args.KV;
+  TmaArgs a;
+  a.Sq = (int)Sq;
+  a.Sk = (int)Sk;
+  a.KV = (int)KV;
+  a.G = (int)(H / KV);
+  a.P = kTmaRows / a.G;
+  a.n_qtiles = (int)((Sq + a.P - 1) / a.P);
+  a.window = (int)args.window;
+  a.q_offset = (int)args.q_offset;
+  a.causal = args.causal;
+  a.scale_log2 = args.scale * 1.4426950408889634f;
+  if (a.n_qtiles > 65535 || B * KV > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t q_strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)(H * D * 2), (cuuint64_t)(Sq * H * D * 2)};
+  const cuuint32_t q_box[4] = {64, (cuuint32_t)a.G, (cuuint32_t)a.P, 1};
+  const cuuint64_t k_dims[4] = {(cuuint64_t)D, (cuuint64_t)KV, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t k_strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)(KV * D * 2), (cuuint64_t)(Sk * KV * D * 2)};
+  const cuuint32_t k_box[4] = {64, 1, (cuuint32_t)KT, 1};
+  CUtensorMap q_map, k_map, v_map, o_map;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int err = hopper::encode_tiled(&q_map, bf16, 4, args.q, q_dims, q_strides, q_box, sw);
+  if (!err) err = hopper::encode_tiled(&o_map, bf16, 4, args.o, q_dims, q_strides, q_box, sw);
+  if (!err) err = hopper::encode_tiled(&k_map, bf16, 4, args.k, k_dims, k_strides, k_box, sw);
+  if (!err) err = hopper::encode_tiled(&v_map, bf16, 4, args.v, k_dims, k_strides, k_box, sw);
+  if (err) return err;
+
+  auto kernel = flash_attention_tma_kernel<D, KT, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned int)(B * KV), (unsigned int)a.n_qtiles);
+  kernel<<<grid, kTmaThreads, L::bytes, stream>>>(q_map, k_map, v_map, o_map, a);
+  return (int)cudaGetLastError();
+}
+
+// D = 16 and 32 stay on mma.sync (their 32- and 64-byte rows would need swizzle modes of
+// their own); the served head dims take the wgmma + TMA body.
 int launch_bf16(const Args& a, long long D, cudaStream_t stream) {
   switch (D) {
     case 16: return launch_mma<16, 64>(a, stream);
     case 32: return launch_mma<32, 64>(a, stream);
-    case 64: return launch_mma<64, 64>(a, stream);
-    case 128: return launch_mma<128, 64>(a, stream);
-    case 256: return launch_mma<256, 32>(a, stream);
+    case 64: return launch_tma<64>(a, stream);
+    case 128: return launch_tma<128>(a, stream);
+    case 256: return launch_tma<256>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -478,7 +934,8 @@ int launch_f32(const Args& a, long long D, cudaStream_t stream) {
 // Launches the attention on `stream` and returns cudaGetLastError() (0 on success).
 // q, k, v, o are contiguous device pointers of the shapes above; dtype 0 is float32, 1 is
 // bfloat16 (o has q's dtype).  The caller checks shapes, dtypes, D in {16, 32, 64, 128, 256},
-// 1 <= G = H / KV <= 64 and that q, k, v start on 16-byte boundaries.
+// 1 <= G = H / KV <= 64, that q, k, v, o start on 16-byte boundaries (TMA's alignment) and
+// that the positions fit in 32-bit TMA coordinates.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, long long B,
                                       long long Sq, long long Sk, long long H, long long KV, long long D,
                                       long long causal, long long window, long long q_offset, long long dtype,

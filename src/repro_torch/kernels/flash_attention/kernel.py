@@ -2,9 +2,15 @@
 
 :func:`flash_attention` takes q ``(B, Sq, H, D)`` and k / v ``(B, Sk, KV, D)``.
 On CUDA tensors it launches ``flash_attention_launch`` of
-``csrc/flash_attention.cu`` (one block per (batch, kv head, q tile):
-tensor-core tiles for bfloat16, FMA for float32; see the note at the top of
-the source) on the current stream, or raises; on CPU
+``csrc/flash_attention.cu`` on the current stream, or raises.  The kernel runs
+one block per (batch, kv head, q tile), the G query heads of a kv head as
+rows of the tile.  bfloat16 at D in :data:`TMA_HEAD_DIMS` (the served models'
+128 and 256) runs a warp-specialised body: one producer warp loads Q, K and V
+by TMA (tensor maps encoded at each launch) into a ring of stages, and two
+consumer warpgroups run ``wgmma`` products and the online softmax, with the
+next tile's Q K^T issued before the current tile's softmax.  bfloat16 at D =
+16 or 32 runs ``mma.sync`` tiles, float32 the FMA units; see the note at the
+top of the source.  On CPU
 tensors it runs the plain PyTorch version
 (:func:`repro_torch.kernels.flash_attention.ref.block_attention`), because no
 kernel runs there.  Nothing falls back from the kernel to the plain version.
@@ -37,6 +43,14 @@ launches = 0
 
 #: Head dims the kernel is built for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: bfloat16 head dims of the wgmma + TMA body (the others take mma.sync tiles).
+TMA_HEAD_DIMS = (64, 128, 256)
+#: Query rows of a TMA block: 128 // G positions x G heads.
+TMA_ROWS = 128
+#: Keys of a kv tile of the TMA body by head dim (``TmaTile`` in the source).
+TMA_KV_TILE = {64: 128, 128: 128, 256: 64}
+#: Largest TMA coordinate (a signed 32-bit int) and grid rows of q tiles.
+TMA_COORD_MAX, QTILES_MAX = 2**31 - 1, 65535
 #: Largest G = H / KV (the query heads of a kv head share a block's rows), ``kMaxGroup``.
 ROWS = 64
 #: Input dtypes and their codes in the source; the output has q's dtype.
@@ -98,6 +112,8 @@ def prepare(q, k, v, *, causal=True, window=0, q_offset=0) -> Launch:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads 16 bytes at a time)")
+    if q.dtype == torch.bfloat16 and D in TMA_HEAD_DIMS:
+        check_tma(q, k, v, window=window, q_offset=q_offset)
     out = torch.empty_like(q)
     args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -106,6 +122,27 @@ def prepare(q, k, v, *, causal=True, window=0, q_offset=0) -> Launch:
         stream(dev),
     )
     return Launch(c_function("flash_attention_launch", _ARGTYPES), args, (q, k, v), (out,))
+
+
+def check_tma(q, k, v, *, window=0, q_offset=0) -> None:
+    """Raise unless the TMA body can take q, k, v: each must start on a 16-byte
+    boundary and have unit stride in D and strides of whole 16-byte units in the
+    other dims (a tensor map's rules); positions, the window and the number of q
+    tiles must fit the kernel's 32-bit coordinates and its grid.  Needs no card."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (TMA's alignment)")
+        if x.stride(-1) != 1 or any(st * x.element_size() % 16 for st in x.stride()[:-1]):
+            raise ValueError(f"{name} has strides {tuple(x.stride())}; TMA needs unit stride in D and "
+                             "multiples of 16 bytes in the other dims")
+    B, Sq, H, _ = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if max(Sq + q_offset, Sk, window, B * KV) > TMA_COORD_MAX:
+        raise ValueError(f"positions (Sq + q_offset = {Sq + q_offset}, Sk = {Sk}), window {window} or "
+                         f"B * KV = {B * KV} exceed the TMA body's 32-bit coordinates")
+    positions = TMA_ROWS // (H // KV)
+    if -(-Sq // positions) > QTILES_MAX:
+        raise ValueError(f"Sq = {Sq} needs more than {QTILES_MAX} q tiles of {positions} positions")
 
 
 def launch(job: Launch) -> torch.Tensor:

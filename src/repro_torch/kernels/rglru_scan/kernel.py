@@ -1,9 +1,15 @@
 """Launch wrapper of the hand-written CUDA RG-LRU scan kernel.
 
 :func:`rglru_scan` takes log_a and gated_x ``(B, S, W)`` float32.  On CUDA
-tensors it launches ``rglru_scan_launch`` of ``csrc/rglru_scan.cu`` (one
-thread per (b, w) channel; see the note at the top of the source) on the
-current stream, or raises; on CPU tensors it runs the plain PyTorch version
+tensors it launches ``rglru_scan_launch`` of ``csrc/rglru_scan.cu`` on the
+current stream, or raises.  When W is a multiple of 4 and the tensors start on
+16-byte boundaries (the served width 4096), a block takes 32 channels over
+all of S in time chunks staged through shared memory by TMA: elementwise
+warps turn each chunk into (a, beta * x), one warp walks the chain h = a * h +
+beta * x, and h leaves by TMA stores.  Other widths take one thread per
+channel.  Both round every operation as the plain version does, so their
+outputs equal it bit for bit; see the note at the top of the source.  On CPU
+tensors it runs the plain PyTorch version
 (:func:`repro_torch.kernels.rglru_scan.ref.rglru_scan`).  Nothing falls back
 from the kernel to the plain version.  The scan starts from a zero state, as
 the TPU kernel does.

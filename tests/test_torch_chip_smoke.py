@@ -53,13 +53,63 @@ def test_bounds_at_the_served_shapes(smoke):
 
 
 def test_small_cases_cover_what_the_kernels_take(smoke):
+    from repro_torch.kernels.flash_attention import kernel as flash
+
     cases = smoke.ATTN_CASES
-    assert {c[4] for c in cases} >= {1, 4, 16}  # G
-    assert {c[5] for c in cases} >= {16, 64, 128, 256}  # D
+    assert {c[4] for c in cases} >= {1, 2, 4, 16}  # G
+    assert any(flash.TMA_ROWS % c[4] for c in cases)  # a G that divides no tile (H = 6, KV = 2)
+    assert {c[5] for c in cases} >= set(flash.HEAD_DIMS)  # every D
     assert any(not c[6] for c in cases) and any(c[8] > 0 for c in cases)  # bidirectional, q_offset
+    assert any(c[2] > c[1] and c[8] > 0 for c in cases)  # Sk > Sq with q_offset
     assert any(c[7] == 64 for c in cases) and any(0 < c[7] < c[2] for c in cases)  # window == tile, < S
-    assert any(c[1] % 64 for c in cases)  # a ragged length
+    assert any(c[7] > c[2] for c in cases)  # a window past Sk
+    # a window that is no multiple of the TMA body's kv tile
+    assert any(c[5] in flash.TMA_KV_TILE and c[7] % flash.TMA_KV_TILE[c[5]] for c in cases)
+    # lengths off the 64- and 128-key tiles, on the TMA body
+    assert any(c[5] in flash.TMA_KV_TILE and c[1] % 64 and c[2] % 64 for c in cases)
     assert all(s % 4 for _, s, *_ in smoke.SSM_CASES) and all(s % 8 for _, s, _ in smoke.RGLRU_CASES)
+    rglru_tma = [(s, w) for _, s, w in smoke.RGLRU_CASES if w % 4 == 0]  # the TMA body's widths
+    assert any(s % 64 and w % 32 for s, w in rglru_tma)  # S off the 64-step chunk, W off 32 channels
+    assert any(s >= 4096 for s, _ in rglru_tma)
+    assert any(w % 4 for _, _, w in smoke.RGLRU_CASES)  # and the per-channel body
+
+
+SASS_EXCERPT = """
+\tcode for sm_90a
+\t\tFunction : _ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_23f0aea726flash_attention_tma_kernelILi128ELi128ELi2EEEv14CUtensorMap_stS1_S1_S1_NS_7TmaArgsE
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0390*/                   UTMALDG.4D [UR8], [UR14] ;
+        /*0a40*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*0a50*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*1f00*/                   UTMASTG.4D [UR4], [UR6] ;
+\t\tFunction : _ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_23f0aea726flash_attention_tma_kernelILi64ELi128ELi2EEEv14CUtensorMap_stS1_S1_S1_NS_7TmaArgsE
+        /*0a40*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+\t\tFunction : _ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_23f0aea726flash_attention_mma_kernelILi16ELi64EEEvNS_4ArgsE
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+\t\tFunction : _ZN46_GLOBAL__N__d8d86019_13_rglru_scan_cu_96a0881921rglru_scan_tma_kernelE14CUtensorMap_stS0_S0_Pfii
+        /*0100*/                   UTMALDG.3D [UR8], [UR14] ;
+        /*0110*/                   UTMALDG.3D [UR12], [UR14] ;
+        /*0120*/                   UTMASTG.3D [UR4], [UR6] ;
+\t\tFunction : _ZN46_GLOBAL__N__d8d86019_13_rglru_scan_cu_96a0881917rglru_scan_kernelEPKfS1_PfS2_xxx
+        /*0100*/                   LDG.E R2, desc[UR4][R4.64] ;
+"""
+
+
+def test_sass_counter_counts_per_function_and_kernel(smoke):
+    counts = smoke.sass_counts(SASS_EXCERPT)
+    assert len(counts) == 5
+    tma128 = next(ops for fn, ops in counts.items() if "tma_kernelILi128" in fn)
+    assert tma128 == {"HGMMA": 2, "UTMALDG": 1, "UTMASTG": 1, "UBLKCP": 0}
+    per_kernel = smoke.kernel_sass(counts)
+    assert per_kernel["flash_attention_tma_kernel"] == {"functions": 2, "HGMMA": 3, "UTMALDG": 1, "UTMASTG": 1,
+                                                         "UBLKCP": 0}
+    assert per_kernel["flash_attention_mma_kernel"]["functions"] == 1
+    assert per_kernel["flash_attention_mma_kernel"]["HGMMA"] == 0  # HMMA is not HGMMA
+    assert per_kernel["rglru_scan_tma_kernel"] == {"functions": 1, "HGMMA": 0, "UTMALDG": 2, "UTMASTG": 1, "UBLKCP": 0}
+    # rglru_scan_kernel is a suffix of no other name but must not pick up rglru_scan_tma_kernel
+    assert per_kernel["rglru_scan_kernel"] == {"functions": 1, "HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0, "UBLKCP": 0}
+    assert smoke.kernel_sass({}) == {name: dict(functions=0, **dict.fromkeys(smoke.SASS_OPS, 0))
+                                     for name in smoke.SASS_KERNELS}
 
 
 def test_refuses_to_run_without_a_gpu(smoke, capsys):

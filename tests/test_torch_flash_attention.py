@@ -150,3 +150,25 @@ def test_kernel_prepare_refuses_cpu_tensors():
         kernel.prepare(tq, tk, tv)
     kernel.flash_attention(tq, tk, tv)  # the plain version: no launch
     assert kernel.launches == before
+
+
+def test_tma_checks_refuse_what_a_tensor_map_cannot_take():
+    """``check_tma`` (run by ``prepare`` before the bf16 TMA body) needs no card."""
+    bf = dict(dtype=torch.bfloat16)
+    q, k = torch.zeros((1, 16, 4, 64), **bf), torch.zeros((1, 16, 2, 64), **bf)
+    kernel.check_tma(q, k, k)  # contiguous and aligned: taken
+    kernel.check_tma(torch.zeros((1, 16, 4, 128), **bf)[..., :64], k, k)  # strides of whole 16-byte units
+    shifted = torch.zeros(q.numel() + 8, **bf)[1 : 1 + q.numel()].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernel.check_tma(shifted, k, k)
+    with pytest.raises(ValueError, match="strides"):
+        kernel.check_tma(torch.zeros((1, 16, 4, 68), **bf)[..., :64], k, k)  # rows of 136 bytes
+    kernel.check_tma(q, k, torch.zeros((1, 2, 16, 64), **bf).transpose(1, 2))  # heads outermost: a map takes it
+    with pytest.raises(ValueError, match="unit stride"):
+        kernel.check_tma(q, k, torch.zeros((1, 16, 64, 2), **bf).transpose(2, 3))
+    meta = dict(device="meta", **bf)
+    with pytest.raises(ValueError, match="q tiles"):  # G = 64: 2 positions a tile
+        kernel.check_tma(torch.empty((1, 140000, 64, 64), **meta), torch.empty((1, 16, 1, 64), **meta),
+                         torch.empty((1, 16, 1, 64), **meta))
+    with pytest.raises(ValueError, match="32-bit"):
+        kernel.check_tma(q, k, k, q_offset=2**31)
