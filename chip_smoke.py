@@ -25,8 +25,11 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    (52,480 simulation cells).  The kernel's launch count is reset just before
    that run and read just after; every field must equal the same run with the
    plain version on the card.  Then times the kernel's bare launch (input
-   checks and output allocation done beforehand) and the plain version on the
-   full-width inputs with CUDA events and prints one JSON line for the engine.
+   checks and output allocation done beforehand), the launch of each scheme
+   alone, the whole wrapper and the plain version on the full-width inputs
+   with CUDA events, counts the study's longest dependent chain (periods plus
+   windows or ticks of one (scheme, cell)) on the host, and prints one JSON
+   line for the engine.
 5. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
    its plain PyTorch version on the card at small shapes: causal and
    bidirectional attention, windows (one off the kv tile, one past Sk),
@@ -72,7 +75,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    one.  Prints one ``{"training": ...}`` line.
 11. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
-   for each served model).
+   for each served model; the sweep row with ``by_scheme``, ``chain_steps``
+   and ``ns_per_step`` = ms × 1e6 / chain_steps).
 12. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -227,22 +231,22 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def sweep_bound(args, out) -> tuple[float, str]:
-    """Least time the card could take for this sweep, counted on the host from
-    this run's inputs and the records it wrote: the larger of the bytes that
-    must move over HBM bandwidth and the float64 operations over the float64
-    peak.  Where the work depends on the data, the count is a lower bound on
-    what this run needs.
+def sweep_work(args, out):
+    """What this sweep had to do, counted on the host from its inputs and the
+    records it wrote: ``(processed, steps, read)``.
 
-    Bytes: every output written once; ``valid`` and ``horizon`` read in full,
-    ``B`` on valid periods (every valid period's record end is its ``B``),
-    ``A`` on the periods some scheme processes, ``ptr0`` on the periods EDGE
-    processes, the distinct rising edges EDGE's walks read, the per-cell
-    offsets, and of the survival tables the distinct entries each cell's
-    longest ADAPT run must gather (its ticks' bins strictly increase, so at
-    least ticks + 1 of them).  Operations: the processed periods, the HOUR
-    windows and EDGE edges inside each processed period's span, and at least
-    ``span // (interval + t_c)`` ADAPT ticks per period.
+    ``processed`` (S, C, P) marks the periods each (scheme, cell) walks: valid,
+    up to and including the completing one.  ``steps`` (S, C, P) counts the
+    HOUR windows and EDGE edges inside each processed period's span, and at
+    least ``span // (interval + t_c)`` ADAPT ticks in it.  ``read`` is the
+    bytes the sweep must read: ``valid`` and ``horizon`` in full, ``B`` on valid
+    periods (every valid period's record end is its ``B``), ``A`` on the
+    periods some scheme processes, ``ptr0`` on the periods EDGE processes, the
+    distinct rising edges EDGE's walks read, the per-cell offsets, and of the
+    survival tables the distinct entries each cell's longest ADAPT run must
+    gather (its ticks' bins strictly increase, so at least ticks + 1 of them).
+    Where the work depends on the data, each count is a lower bound on what
+    this run needs.
     """
     import numpy as np
 
@@ -255,19 +259,18 @@ def sweep_bound(args, out) -> tuple[float, str]:
     done, rend, ruser = out[0].cpu().numpy(), out[6].cpu().numpy(), out[7].cpu().numpy()
     t_r, t_c = c["t_r"], c["t_c"]
 
-    # (s, c, p) periods the sweep processes: valid, up to and including the completing one
     p_last = np.where(done, ruser.argmax(axis=2), P - 1)
     processed = valid[None] & (np.arange(P)[None, None, :] <= p_last[:, :, None])
     span = np.where(processed, np.maximum(rend - (A + t_r)[None], 0.0), 0.0)  # walk time after recovery
+    steps = np.zeros((S, C, P), dtype=np.int64)
 
     read = 4 * S + valid.size + 8 * horizon.numel() + 8 * int(valid.sum()) + 8 * int(processed.any(axis=0).sum())
-    ops = OPS_PER_PERIOD * int(processed.sum())
     if Scheme.HOUR in schemes:
         si = schemes.index(Scheme.HOUR)
         delta = c["hour_delta"]
         k_min = np.floor((t_r + t_c) / delta) + 1  # first window after recovery
         k_max = np.ceil((span[si] + t_r + t_c) / delta) - 1  # last window start before the span ends
-        ops += OPS_PER_WINDOW * int(np.maximum(k_max - k_min + 1, 0)[processed[si]].sum())
+        steps[si] = np.where(processed[si], np.maximum(k_max - k_min + 1, 0), 0)
     if Scheme.EDGE in schemes:
         si = schemes.index(Scheme.EDGE)
         flat, base, n = (x.cpu().numpy() for x in edges)
@@ -278,7 +281,7 @@ def sweep_bound(args, out) -> tuple[float, str]:
             rows = base == b0
             hi[rows] = np.searchsorted(flat[b0:b0 + n0], end[rows], side="left")
         used = processed[si] & (hi > p0)
-        ops += OPS_PER_WINDOW * int((hi - p0)[used].sum())
+        steps[si] = np.where(used, hi - p0, 0)
         # distinct edges read: [ptr0, hi] of every period that reads one, as a union
         cover = np.zeros(flat.size + 1, dtype=np.int64)
         np.add.at(cover, (base[:, None] + p0)[used], 1)
@@ -291,16 +294,65 @@ def sweep_bound(args, out) -> tuple[float, str]:
         if interval < bin_s:
             raise AssertionError("the table bound assumes one decision interval spans a hazard bin or more")
         ticks = np.floor(span[si] / (interval + t_c)).astype(np.int64)
-        ops += OPS_PER_TICK * int(ticks.sum())
+        steps[si] = ticks
         top = tables[2].cpu().numpy()
         first = np.minimum(int((t_r + interval) / bin_s), top)  # bin of the first decision
         longest = ticks.max(axis=1)
         entries = np.where(longest > 0, np.minimum(longest + 1, top + 1 - first), 0)
         read += 8 * int(entries.sum()) + 16 * C
+    return processed, steps, read
+
+
+def sweep_bound(args, out) -> tuple[float, str]:
+    """Least time the card could take for this sweep (see :func:`sweep_work`):
+    the larger of the bytes that must move over HBM bandwidth (the reads and
+    every output written once) and the float64 operations over the float64
+    peak (``OPS_PER_PERIOD`` a processed period, ``OPS_PER_WINDOW`` an HOUR /
+    EDGE window, ``OPS_PER_TICK`` an ADAPT tick)."""
+    from repro_torch.core.schemes import Scheme
+
+    processed, steps, read = sweep_work(args, out)
+    schemes = tuple(args[0])
+    S, (C, P) = len(schemes), args[1].shape
+    ops = OPS_PER_PERIOD * int(processed.sum())
+    for si, scheme in enumerate(schemes):
+        ops += (OPS_PER_TICK if scheme == Scheme.ADAPT else OPS_PER_WINDOW) * int(steps[si].sum())
     written = S * C * (1 + 8 + 8 + 8 + 8) + S * C * P * (1 + 8 + 1)
     bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / F64_OPS_PER_S
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def chain_steps(args, out) -> int:
+    """The largest number of dependent steps any (scheme, cell) of this sweep
+    needs: its processed periods plus its windows or ticks, counted as
+    :func:`sweep_work` counts them.  It depends on the inputs, not on the
+    kernel's design: the kernel's time over it is the time a step takes."""
+    processed, steps, _ = sweep_work(args, out)
+    return int((processed + steps).sum(axis=2).max(initial=0))
+
+
+def sweep_row(launches, max_err, ms, plain_ms, bound, wrapper_ms, by_scheme, steps) -> dict:
+    """The sweep's row of the kernels line."""
+    bound_ms, bound_by = bound
+    return {
+        "name": "spot_sweep",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/spot_sweep/csrc/spot_sweep.cu",
+        "replaces": "src/repro/kernels/spot_sweep/kernel.py:458",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "wrapper_ms": wrapper_ms,
+        "by_scheme": by_scheme,
+        "chain_steps": steps,
+        "ns_per_step": ms * 1e6 / steps if steps else None,
+        "match": True,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1341,23 +1393,14 @@ def main() -> int:
     job = kernel.prepare(*args)  # input checks and output allocation, outside the timed region
     kernel_ms = time_ms(lambda: kernel.launch(job), reps=10)
     wrapper_ms = time_ms(lambda: kernel.spot_sweep(*args), reps=10)  # checks + allocation + launch
+    by_scheme = {}
+    for scheme in sc.schemes:  # each scheme alone: which walk sets the time
+        one = kernel.prepare((scheme,), *args[1:])
+        by_scheme[scheme.value] = time_ms(lambda: kernel.launch(one), reps=10)
+        del one
     plain_ms = time_ms(lambda: ref.sweep_plain(*args), reps=3)
-    bound_ms, bound_by = sweep_bound(args, out)
-    sweep_row = {
-        "name": "spot_sweep",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/spot_sweep/csrc/spot_sweep.cu",
-        "replaces": "src/repro/kernels/spot_sweep/kernel.py:458",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "wrapper_ms": wrapper_ms,
-        "match": True,
-    }
+    sweep_entry = sweep_row(launches, max_err, kernel_ms, plain_ms, sweep_bound(args, out), wrapper_ms, by_scheme,
+                            chain_steps(args, out))
 
     walls = {}
     for label, eng in (("cuda", TorchEngine(device=device)), ("plain", TorchEngine(device=device, impl="plain"))):
@@ -1400,7 +1443,7 @@ def main() -> int:
             row["launches_by_path"] = {"serving": row["launches"], "training": extra}
             row["launches"] += extra
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
-    print(json.dumps({"kernels": [sweep_row, *rows, codec]}), flush=True)
+    print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
     # -- 12. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {

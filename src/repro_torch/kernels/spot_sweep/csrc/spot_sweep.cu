@@ -4,20 +4,35 @@
 // Pallas TPU kernel that carries every bid-limited checkpointing scheme (NONE, OPT, HOUR,
 // EDGE, ADAPT) through the padded (cells x periods) availability grid.
 //
-// Design: one thread per (scheme, cell), scheme-major (thread i runs scheme i / C on cell
-// i % C), so a warp holds one scheme.  Each thread walks its own cell's periods in order
-// with the whole scheme state in registers, through one flat loop over its own (period,
-// step) cursor -- the per-thread form of _adapt_decoupled: an iteration enters a period or
-// takes one HOUR / EDGE checkpoint window or one ADAPT decision tick, so a warp's loop count
-// is its busiest lane's periods plus steps, not the sum over periods of the slowest lane.
-// EDGE reads its first edge cursor from ptr0[c, p] in every period.  None of the Pallas
-// block / VMEM structure is carried over: a thread needs no shared memory.
+// What bounds it on this card: the dependent chain of its longest walk, not bandwidth.
+// A (scheme, cell) is a serial walk -- each period, HOUR / EDGE checkpoint window and ADAPT
+// decision tick starts from the state the one before left -- and at full width (5 schemes x
+// 10,496 cells, 219 periods) the sweep is one wave of threads, so the kernel lasts as long
+// as its slowest warp: ~400 iterations of ADAPT, each a few dependent float64 operations,
+// three IEEE divisions and two survival-table gathers.  The bytes it must move (~115 MB of
+// run records) take ~40 us at full bandwidth.  The design keeps device memory off each
+// walk's chain:
 //
-// What bounds it on this card: the serial chain of the busiest thread (its periods plus its
-// windows or ticks, each a few dependent float64 operations and, for ADAPT, two gathers from
-// the survival tables) and the run records it writes, about 10 bytes x S x C x P, each
-// thread's records strided by P.  The records' layout is the one the host biller reads.
-// Faster designs (coalesced record stores, splitting long cells) come later.
+// * One block runs one scheme (a template parameter, dispatched on blockIdx): each
+//   scheme's cells are padded to whole blocks, and the long walks (ADAPT, HOUR, EDGE) come
+//   first in block order.  A warp never straddles two schemes whatever C is.
+// * Run records leave the walk.  A walk stores nothing per period but one bit a period
+//   that has a record (a word per 32 periods, into scratch); after the block's walks its
+//   threads write all of its rows' records, 32 consecutive periods a warp instruction:
+//   rec_exists from the bits up to the completing period, rec_end = B (the completion
+//   time at the completing period), rec_user at the completing period only.  A walk
+//   leaves its loop at completion, so the periods after it cost it nothing.
+// * Period inputs come a period ahead.  A, B, valid (and ptr0 for EDGE) of the next period
+//   are loaded into registers when a period is taken, and the lines kAhead periods on are
+//   prefetched into L1.
+// * ADAPT keeps the cell's table offset and top in registers, reuses the last tick's
+//   second gathered value when this tick's first bin is the same entry, and prefetches
+//   the lines the next tick can reach (after a checkpoint or not) while it decides.
+// * An iteration that takes a period with work also takes its first window / tick.
+//
+// One thread per (scheme, cell) with a flat per-thread (period, step) cursor: an
+// iteration takes one period or one window / tick, so the lanes of a warp stay on the
+// same iteration and a warp's loop count is its busiest lane's periods plus steps.
 //
 // Exactness: every expression keeps the association order of the plain version
 // (repro_torch/engine/kernels.py) -- work + (s - t), t + (work_s - work), a + k*delta - t_c --
@@ -33,15 +48,22 @@
 namespace {
 
 constexpr double kEps = 1e-9;  // core/simulator.py _EPS
+constexpr int kThreads = 128;  // cells a block (one scheme)
+constexpr int kMaxSchemes = 5;
+constexpr long long kAhead = 8;  // periods between a line's prefetch into L1 and its use
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 16;      // items of 32 records a warp has in flight in the record pass
 enum SchemeCode : int { kNone = 0, kOpt = 1, kHour = 2, kEdge = 3, kAdapt = 4 };
 
 struct Params {
-  const int* schemes;  // (S,) scheme codes
   long long S, C, P;
-  const double* A;        // (C, P) period starts, NaN pad
-  const double* B;        // (C, P) period ends, NaN pad
-  const bool* valid;      // (C, P)
-  const double* horizon;  // (C,)
+  int codes[kMaxSchemes];  // scheme code of each output slot
+  int order[kMaxSchemes];  // output slots in block order, longest chains first
+  long long cell_blocks;   // blocks a scheme: ceil(C / kThreads)
+  const double* A;         // (C, P) period starts, NaN pad
+  const double* B;         // (C, P) period ends, NaN pad
+  const bool* valid;       // (C, P)
+  const double* horizon;   // (C,)
   const long long* ptr0;        // (C, P) first rising edge after A + t_r (EDGE)
   const double* edges_flat;     // (E,) rising-edge times of every market (EDGE)
   const long long* edge_base;   // (C,)
@@ -59,7 +81,13 @@ struct Params {
   bool* rec_exists;       // (S, C, P)
   double* rec_end;        // (S, C, P)
   bool* rec_user;         // (S, C, P)
+  unsigned* rec_bits;     // (S, C, words) scratch: which periods have a record
+  long long words;        // ceil(P / 32)
 };
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
 
 // np.minimum / np.maximum: a NaN in either operand gives NaN.
 __device__ __forceinline__ double np_min(double x, double y) { return (x <= y || x != x) ? x : y; }
@@ -74,7 +102,7 @@ struct PeriodOut {
   long long ckpt_add;
 };
 
-__device__ PeriodOut none_period(const Params& q, double b, double start_work, double saved) {
+__device__ __forceinline__ PeriodOut none_period(const Params& q, double b, double start_work, double saved) {
   PeriodOut o;
   const double lhs = saved + (b - start_work);
   o.done_now = lhs >= (q.work_s - kEps);
@@ -85,7 +113,7 @@ __device__ PeriodOut none_period(const Params& q, double b, double start_work, d
   return o;
 }
 
-__device__ PeriodOut opt_period(const Params& q, double b, double start_work, double saved) {
+__device__ __forceinline__ PeriodOut opt_period(const Params& q, double b, double start_work, double saved) {
   const double work_lim = q.work_s - kEps;
   const double remaining = q.work_s - saved;
   const double completes_at = start_work + remaining;
@@ -120,46 +148,44 @@ __device__ PeriodOut opt_period(const Params& q, double b, double start_work, do
 }
 
 // A walking scheme's state inside one period: HOUR / EDGE checkpoint windows, ADAPT
-// decision ticks.  `cursor` is HOUR's window index k or EDGE's edge cursor.
+// decision ticks.  `cursor` is HOUR's window index k or EDGE's edge cursor; `s_edge` the
+// rising edge at EDGE's cursor; `k_prev` / `s_prev` ADAPT's last gathered table entry and
+// its value.
 struct Walk {
-  double t, work, sv, next_dec, done_at;
-  long long cursor, ckpt_add;
-  bool done_now, tail;
+  double t, work, sv, next_dec, done_at, s_edge, s_prev;
+  long long cursor, ckpt_add, k_prev;
+  bool done_now;
 };
 
-__device__ __forceinline__ void walk_enter(const Params& q, int scheme, long long c, long long p,
-                                           double start_work, double saved, Walk& w) {
-  w.t = start_work;
-  w.work = saved;
-  w.sv = saved;
-  w.next_dec = start_work + q.interval;
-  w.done_at = NAN;
-  w.ckpt_add = 0;
-  w.done_now = false;
-  w.tail = false;
-  w.cursor = scheme == kEdge ? q.ptr0[c * q.P + p] : 1;
-}
+// Per-cell inputs of the walking schemes, loaded once a cell.
+struct CellIn {
+  const double* edges;  // EDGE: the cell's market's rising edges
+  long long n_edges;
+  const double* tab;    // ADAPT: the cell's survival table
+  long long top;
+  long long k_step, k_step_ckpt;  // ADAPT: bins a tick spans without / with a checkpoint
+};
 
 // One HOUR (window k starts at a + k*delta - t_c) or EDGE (windows start at the rising
 // edges from ptr0 on) window: engine/kernels.py windows_advance.  Returns true when the
 // period's walk has ended; the tail segment (work to b, maybe completing) is then applied.
-__device__ bool window_step(const Params& q, int scheme, long long c, double a, double b,
-                            double start_work, Walk& w) {
+template <int kScheme>
+__device__ __forceinline__ bool window_step(const Params& q, const CellIn& cell, double a, double b,
+                                            double start_work, Walk& w) {
   const double work_lim = q.work_s - kEps;
   double s;
   bool no_more, window;
-  if (scheme == kHour) {
+  if (kScheme == kHour) {
     s = a + (double)w.cursor * q.hour_delta - q.t_c;
     no_more = !(s < b);
     window = (s < b) && (s > start_work);  // windows before recovery ends are skipped
   } else {
-    const bool have = w.cursor < q.edge_n[c];
-    s = have ? q.edges_flat[q.edge_base[c] + w.cursor] : INFINITY;
+    const bool have = w.cursor < cell.n_edges;
+    s = w.s_edge;  // INFINITY past the last edge
     no_more = !have || !(s < b);
     window = have && (s < b);
   }
   bool ended = no_more;
-  w.tail = no_more;
   if (window) {
     const double w_at = w.work + (s - w.t);
     if (w_at >= work_lim) {
@@ -177,12 +203,13 @@ __device__ bool window_step(const Params& q, int scheme, long long c, double a, 
       if (w.t >= b) ended = true;  // billed out inside the checkpoint
     }
   }
-  if (scheme == kHour) {
+  if (kScheme == kHour) {
     ++w.cursor;
   } else if (window) {
     ++w.cursor;  // only consumed edges advance
+    w.s_edge = w.cursor < cell.n_edges ? cell.edges[w.cursor] : INFINITY;
   }
-  if (w.tail) {  // tail segment: work to b, maybe completing
+  if (no_more) {  // tail segment: work to b, maybe completing
     const double lhs = w.work + (b - w.t);
     if (lhs >= work_lim) {
       w.done_now = true;
@@ -193,27 +220,20 @@ __device__ bool window_step(const Params& q, int scheme, long long c, double a, 
   return ended;
 }
 
-__device__ __forceinline__ double survival_at(const Params& q, long long k, long long off,
-                                              long long top) {
-  const long long idx = k >= q.n_bins ? top + 1 : (k <= top ? k : top);
-  return q.tab_flat[off + idx];
+// The table entry of hazard bin k, and of the bin of `age` (engine/kernels.py
+// adapt_decision: an IEEE division truncated toward zero, then the clamp to the table's
+// top).
+__device__ __forceinline__ long long clamp_entry(const Params& q, long long top, long long k) {
+  return k >= q.n_bins ? top + 1 : (k <= top ? k : top);
+}
+__device__ __forceinline__ long long bin_entry(const Params& q, long long top, double age) {
+  return clamp_entry(q, top, (long long)(age / q.bin_s));
 }
 
-// engine/kernels.py adapt_decision: checkpoint iff hazard * (unsaved + t_r) > t_c.
-__device__ bool adapt_take(const Params& q, double age, double unsaved, long long off,
-                           long long top) {
-  const long long k1 = (long long)(age / q.bin_s);
-  const double s_now = survival_at(q, k1, off, top);
-  const long long k2 = (long long)((age + q.interval) / q.bin_s);
-  const double s_later = survival_at(q, k2, off, top);
-  double h = 1.0;
-  if (!(s_now <= 0.0)) h = np_min(np_max((s_now - s_later) / s_now, 0.0), 1.0);
-  return (h * (unsaved + q.t_r)) > q.t_c;
-}
-
-// One ADAPT decision tick (engine/kernels.py adapt_tick_core).  Returns true when the
+// One ADAPT decision tick (engine/kernels.py adapt_tick_core; the decision is
+// adapt_decision: checkpoint iff hazard * (unsaved + t_r) > t_c).  Returns true when the
 // period's walk has ended (completion or kill).
-__device__ bool adapt_step(const Params& q, long long c, double a, double b, Walk& w) {
+__device__ __forceinline__ bool adapt_step(const Params& q, const CellIn& cell, double a, double b, Walk& w) {
   const double seg_end = np_min(w.next_dec, b);
   if (w.work + (seg_end - w.t) >= q.work_s - kEps) {
     w.done_now = true;
@@ -223,7 +243,20 @@ __device__ bool adapt_step(const Params& q, long long c, double a, double b, Wal
   w.work = w.work + (seg_end - w.t);
   w.t = seg_end;
   if (w.t >= b) return true;  // killed at b with no decision left
-  if (adapt_take(q, w.t - a, w.work - w.sv, q.tab_off[c], q.tab_top[c])) {
+  const double age = w.t - a;
+  const long long k1 = bin_entry(q, cell.top, age);
+  const long long k2 = bin_entry(q, cell.top, age + q.interval);
+  const double s_later = cell.tab[k2];
+  // a tick whose first entry is the last tick's second reuses its value (same entry)
+  const double s_now = k1 == w.k_prev ? w.s_prev : cell.tab[k1];
+  // the next tick's entries lie from k2 on, up to one interval and one checkpoint further
+  prefetch_l1(cell.tab + clamp_entry(q, cell.top, k2 + cell.k_step));
+  prefetch_l1(cell.tab + clamp_entry(q, cell.top, k2 + cell.k_step_ckpt));
+  w.k_prev = k2;
+  w.s_prev = s_later;
+  double h = 1.0;
+  if (!(s_now <= 0.0)) h = np_min(np_max((s_now - s_later) / s_now, 0.0), 1.0);
+  if ((h * ((w.work - w.sv) + q.t_r)) > q.t_c) {
     if ((w.t + q.t_c) <= (b + kEps)) {
       w.sv = w.work;
       ++w.ckpt_add;
@@ -235,68 +268,157 @@ __device__ bool adapt_step(const Params& q, long long c, double a, double b, Wal
   return false;
 }
 
-__global__ void spot_sweep_kernel(const Params q) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q.S * q.C) return;
-  const long long si = i / q.C;
-  const long long c = i % q.C;
-  const int scheme = q.schemes[si];
-  const bool walks = scheme == kHour || scheme == kEdge || scheme == kAdapt;
-  const double* A = q.A + c * q.P;
-  const double* B = q.B + c * q.P;
-  const bool* V = q.valid + c * q.P;
-  const long long rec0 = i * q.P;  // (si * C + c) * P
+struct PeriodIn {
+  double a, b;
+  long long ptr;
+  bool v;
+};
+
+// A thread's period cursor over its cell's row: take(p) returns period p's inputs, which
+// were loaded into registers when period p - 1 was taken, loads period p + 1's, and
+// prefetches the lines kAhead periods on into L1.  Periods are taken in order, each once,
+// after load(0).
+template <int kScheme>
+struct PeriodStream {
+  const double* A;
+  const double* B;
+  const bool* V;
+  const long long* PTR;
+  long long P;
+  PeriodIn next;
+
+  __device__ __forceinline__ void load(long long p) {
+    if (p < P) {
+      next.v = V[p];
+      next.a = A[p];
+      next.b = B[p];
+      if (kScheme == kEdge) next.ptr = PTR[p];
+    }
+  }
+
+  __device__ __forceinline__ PeriodIn take(long long p) {
+    const PeriodIn in = next;
+    load(p + 1);
+    if (p + kAhead < P) {
+      prefetch_l1(A + p + kAhead);
+      prefetch_l1(B + p + kAhead);
+      prefetch_l1(V + p + kAhead);
+      if (kScheme == kEdge) prefetch_l1(PTR + p + kAhead);
+    }
+    return in;
+  }
+};
+
+// The periods of a row that have a run record, as bits: word w of a row holds periods
+// 32w .. 32w + 31.  The walk takes the periods in order and stores each word when it takes
+// the first period past it (and the last word when it stops), so every word up to where
+// the walk stopped is written.
+struct RecordBits {
+  unsigned* words;  // the row's words
+  long long w;      // the word of the period taken last
+  unsigned bits;
+
+  __device__ __forceinline__ void take(long long p) {
+    if ((p >> 5) != w) {
+      flush();
+      w = p >> 5;
+      bits = 0;
+    }
+  }
+  __device__ __forceinline__ void mark(long long p) { bits |= 1u << (p & 31); }
+  __device__ __forceinline__ void flush() {
+    if (w >= 0) words[w] = bits;
+  }
+};
+
+// What a row's walk leaves for the block's record pass.
+struct RowEnd {
+  long long p_done;  // the completing period, -1 if the job never completes
+  double comp;       // its completion time
+};
+
+// The walk of one (scheme, cell): every period in order, with the scheme's state in
+// registers; writes the cell's five final states and returns its RowEnd.
+template <int kScheme>
+__device__ __forceinline__ RowEnd walk_cell(const Params& q, long long si, long long c) {
+  constexpr bool kWalks = kScheme == kHour || kScheme == kEdge || kScheme == kAdapt;
+  const long long P = q.P;
+  PeriodStream<kScheme> in{q.A + c * P, q.B + c * P, q.valid + c * P,
+                           kScheme == kEdge ? q.ptr0 + c * P : nullptr, P, PeriodIn{0.0, 0.0, 0, false}};
+  in.load(0);
   const double hor = q.horizon[c];
+  CellIn cell{nullptr, 0, nullptr, 0, 0, 0};
+  if (kScheme == kEdge) {
+    cell.edges = q.edges_flat + q.edge_base[c];
+    cell.n_edges = q.edge_n[c];
+  }
+  if (kScheme == kAdapt) {
+    cell.tab = q.tab_flat + q.tab_off[c];
+    cell.top = q.tab_top[c];
+    cell.k_step = (long long)(q.interval / q.bin_s);
+    cell.k_step_ckpt = (long long)((q.interval + q.t_c) / q.bin_s) + 1;
+  }
 
   double saved = q.init_saved, comp = INFINITY, lost = 0.0;
   bool done = false, has_run = false;
-  long long n_ckpt = 0, n_kills = 0;
+  long long n_ckpt = 0, n_kills = 0, p_done = -1;
+  RecordBits rec{q.rec_bits + (si * q.C + c) * q.words, -1, 0u};
 
-  // One flat loop over this thread's (period, step) cursor: an iteration either enters
-  // period p or takes one window / tick of it, so the lanes of a warp stay on the same
+  // One flat loop over this thread's (period, step) cursor: an iteration takes the next
+  // period (and, if it has work, enters it and takes its first window / tick) or takes one
+  // window / tick of the period it is in, so the lanes of a warp stay on the same
   // iteration whatever their periods look like (a nested per-period loop would make the
   // warp wait, period by period, for its slowest lane).
   long long p = 0;
   bool walking = false;
   double a = 0.0, b = 0.0, start_work = 0.0;
   Walk w;
-  while (p < q.P) {
+  while (p < P) {
     bool close = false;  // the period ends in this iteration
     PeriodOut o;
     o.done_now = false;
     if (!walking) {
-      b = B[p];
-      if (!V[p] || done) {
-        q.rec_exists[rec0 + p] = false;
-        q.rec_end[rec0 + p] = b;
-        q.rec_user[rec0 + p] = false;
+      const PeriodIn pi = in.take(p);
+      rec.take(p);
+      if (!pi.v) {
         ++p;
         continue;
       }
-      a = A[p];
+      a = pi.a;
+      b = pi.b;
       start_work = a + q.t_r;
-      if (scheme == kNone && has_run) saved = 0.0;  // NONE restarts from scratch
+      if (kScheme == kNone && has_run) saved = 0.0;  // NONE restarts from scratch
       if (start_work >= b) {  // killed before recovery finished: billed, no progress
-        const bool killed = b < hor;
-        if (killed) {
+        if (b < hor) {
           ++n_kills;
           has_run = true;
+          rec.mark(p);
         }
-        q.rec_exists[rec0 + p] = killed;
-        q.rec_end[rec0 + p] = b;
-        q.rec_user[rec0 + p] = false;
         ++p;
         continue;
       }
-      if (walks) {
-        walk_enter(q, scheme, c, p, start_work, saved, w);
+      if (kWalks) {  // enter the period and take its first step in this iteration
+        w.t = start_work;
+        w.work = saved;
+        w.sv = saved;
+        w.next_dec = start_work + q.interval;
+        w.done_at = NAN;
+        w.ckpt_add = 0;
+        w.done_now = false;
+        w.cursor = kScheme == kEdge ? pi.ptr : 1;
+        w.s_edge = (kScheme == kEdge && pi.ptr < cell.n_edges) ? cell.edges[pi.ptr] : INFINITY;
+        w.k_prev = -1;  // no entry gathered yet in this period
+        w.s_prev = 0.0;
         walking = true;
-        continue;
+      } else {
+        o = kScheme == kNone ? none_period(q, b, start_work, saved) : opt_period(q, b, start_work, saved);
+        close = true;
       }
-      o = scheme == kNone ? none_period(q, b, start_work, saved) : opt_period(q, b, start_work, saved);
-      close = true;
-    } else {
-      if (scheme == kAdapt ? adapt_step(q, c, a, b, w) : window_step(q, scheme, c, a, b, start_work, w)) {
+    }
+    if (walking) {
+      const bool ended = kScheme == kAdapt ? adapt_step(q, cell, a, b, w)
+                                           : window_step<kScheme>(q, cell, a, b, start_work, w);
+      if (ended) {
         o.done_now = w.done_now;
         o.done_at = w.done_at;
         o.work_end = w.work;
@@ -306,55 +428,137 @@ __global__ void spot_sweep_kernel(const Params q) {
         close = true;
       }
     }
-    if (close) {  // fold the period's outcome and write its run record
+    if (close) {  // fold the period's outcome
+      rec.mark(p);
       n_ckpt += o.ckpt_add;
       if (o.done_now) {
         comp = o.done_at;
         done = true;
-      } else {
-        ++n_kills;
-        has_run = true;
-        if (scheme == kNone) {
-          lost = lost + (o.work_end - 0.0);
-        } else {
-          lost = lost + (o.work_end - o.saved_out);
-          saved = o.saved_out;
-        }
+        p_done = p;
+        break;  // the rest of the cell's periods have no record
       }
-      q.rec_exists[rec0 + p] = true;
-      q.rec_end[rec0 + p] = o.done_now ? o.done_at : b;
-      q.rec_user[rec0 + p] = o.done_now;
+      ++n_kills;
+      has_run = true;
+      if (kScheme == kNone) {
+        lost = lost + (o.work_end - 0.0);
+      } else {
+        lost = lost + (o.work_end - o.saved_out);
+        saved = o.saved_out;
+      }
       ++p;
     }
   }
+  rec.flush();
+  const long long i = si * q.C + c;
   q.done[i] = done;
   q.comp_time[i] = comp;
   q.n_ckpt[i] = n_ckpt;
   q.work_lost[i] = lost;
   q.n_kills[i] = n_kills;
+  return RowEnd{p_done, comp};
+}
+
+__global__ void __launch_bounds__(kThreads) spot_sweep_kernel(const Params q) {
+  __shared__ RowEnd rows[kThreads];
+  const long long si = q.order[blockIdx.x / q.cell_blocks];
+  const long long c0 = (long long)(blockIdx.x % q.cell_blocks) * kThreads;
+  const long long c = c0 + threadIdx.x;
+  if (c < q.C) {
+    RowEnd r;
+    switch (q.codes[si]) {
+      case kNone: r = walk_cell<kNone>(q, si, c); break;
+      case kOpt: r = walk_cell<kOpt>(q, si, c); break;
+      case kHour: r = walk_cell<kHour>(q, si, c); break;
+      case kEdge: r = walk_cell<kEdge>(q, si, c); break;
+      default: r = walk_cell<kAdapt>(q, si, c); break;
+    }
+    rows[threadIdx.x] = r;
+  }
+  __syncthreads();
+
+  // The run records of the block's rows, (row, period)-major as the outputs lie.  An
+  // item is 32 periods of a row, one a lane (so the warp's loads and stores are
+  // consecutive); a warp has kUnroll items in flight.  A record exists where the walk
+  // marked it, up to the completing period; it ends at B but the completing one at the
+  // completion time.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long P = q.P;
+  const int W = (int)q.words;
+  const int items = (int)(q.C - c0 < kThreads ? q.C - c0 : kThreads) * W;
+  const double* B = q.B + c0 * P;
+  const unsigned* bits = q.rec_bits + (si * q.C + c0) * W;
+  const long long out0 = (si * q.C + c0) * P;
+  for (int i0 = warp; i0 < items; i0 += kWarps * kUnroll) {
+    double bv[kUnroll];
+    unsigned wv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kWarps, r = i / W;
+      const long long p = (long long)(i - r * W) * 32 + lane;
+      if (i < items) {
+        wv[u] = bits[i];  // written by the walk if it took these periods
+        if (p < P) bv[u] = B[r * P + p];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kWarps, r = i / W;
+      const long long p = (long long)(i - r * W) * 32 + lane;
+      if (i < items && p < P) {
+        const RowEnd& row = rows[r];
+        const long long j = out0 + r * P + p;
+        const bool walked = row.p_done < 0 || p <= row.p_done;
+        const bool user = p == row.p_done;
+        q.rec_exists[j] = walked && ((wv[u] >> lane) & 1u);
+        q.rec_end[j] = user ? row.comp : bv[u];
+        q.rec_user[j] = user;
+      }
+    }
+  }
+}
+
+// Slot order of the blocks: ADAPT, HOUR, EDGE, OPT, NONE (longest walks first).
+int chain_rank(int code) {
+  switch (code) {
+    case kAdapt: return 0;
+    case kHour: return 1;
+    case kEdge: return 2;
+    case kOpt: return 3;
+    default: return 4;
+  }
 }
 
 }  // namespace
 
-// Launches the sweep on `stream` and returns cudaGetLastError() (0 on success).  Pointers
-// to the EDGE / ADAPT inputs may be null when the scheme set has no EDGE / ADAPT.
+// Launches the sweep on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for more than five schemes.  `codes` is a host array of the S
+// scheme codes.  Pointers to the EDGE / ADAPT inputs may be null when the scheme set has
+// no EDGE / ADAPT.  `rec_bits` is scratch of S * C * ceil(P / 32) words.
 extern "C" int spot_sweep_launch(
-    const int* schemes, long long S, long long C, long long P,
+    const int* codes, long long S, long long C, long long P,
     const double* A, const double* B, const bool* valid, const double* horizon,
     const long long* ptr0, const double* edges_flat, const long long* edge_base,
     const long long* edge_n, const double* tab_flat, const long long* tab_off,
     const long long* tab_top, double init_saved, double work_s, double t_c, double t_r,
     double hour_delta, double interval, double bin_s, long long n_bins, bool* done,
     double* comp_time, long long* n_ckpt, double* work_lost, long long* n_kills,
-    bool* rec_exists, double* rec_end, bool* rec_user, void* stream) {
-  const Params q{schemes, S, C, P, A, B, valid, horizon, ptr0, edges_flat, edge_base, edge_n,
-                 tab_flat, tab_off, tab_top, init_saved, work_s, t_c, t_r, hour_delta,
-                 interval, bin_s, n_bins, done, comp_time, n_ckpt, work_lost, n_kills,
-                 rec_exists, rec_end, rec_user};
-  const long long n = S * C;
-  if (n == 0) return 0;
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  spot_sweep_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(q);
+    bool* rec_exists, double* rec_end, bool* rec_user, unsigned* rec_bits, void* stream) {
+  if (S < 0 || S > kMaxSchemes) return (int)cudaErrorInvalidValue;
+  if (S == 0 || C == 0) return 0;
+  Params q{S, C, P, {}, {}, (C + kThreads - 1) / kThreads, A, B, valid, horizon, ptr0,
+           edges_flat, edge_base, edge_n, tab_flat, tab_off, tab_top, init_saved, work_s, t_c,
+           t_r, hour_delta, interval, bin_s, n_bins, done, comp_time, n_ckpt, work_lost,
+           n_kills, rec_exists, rec_end, rec_user, rec_bits, (P + 31) / 32};
+  for (int s = 0; s < S; ++s) {
+    q.codes[s] = codes[s];
+    int k = s;  // insertion sort of the slots by chain rank, stable
+    while (k > 0 && chain_rank(codes[q.order[k - 1]]) > chain_rank(codes[s])) {
+      q.order[k] = q.order[k - 1];
+      --k;
+    }
+    q.order[k] = s;
+  }
+  const long long blocks = S * q.cell_blocks;
+  spot_sweep_kernel<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(q);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,8 @@ resets it to 0 before a run to see whether the run went through the kernel.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.schemes import Scheme
@@ -40,6 +42,7 @@ _ARGTYPES = (
     + [I64]  # n_bins
     + [PTR] * 5  # done, comp_time, n_ckpt, work_lost, n_kills
     + [PTR] * 3  # rec_exists, rec_end, rec_user
+    + [PTR]  # rec_bits (scratch)
     + [PTR]  # stream
 )
 
@@ -64,8 +67,9 @@ def prepare(schemes, A, B, valid, horizon, consts, ptr0=None, edges=None, tables
 
     schemes = tuple(schemes)
     unknown = [s for s in schemes if s not in SCHEME_CODES]
-    if unknown or not schemes:
-        raise ValueError(f"the sweep kernel runs {sorted(s.value for s in SCHEME_CODES)}, got {schemes}")
+    if unknown or not schemes or len(set(schemes)) != len(schemes):
+        raise ValueError(f"the sweep kernel runs each of {sorted(s.value for s in SCHEME_CODES)} at most once, "
+                         f"got {schemes}")
     dev = A.device
     S = len(schemes)
     C, P = A.shape
@@ -83,13 +87,6 @@ def prepare(schemes, A, B, valid, horizon, consts, ptr0=None, edges=None, tables
         check("edges_flat", edges_flat, f64, (edges_flat.shape[0],), dev)
         check("edge_base", edge_base, i64, (C,), dev)
         check("edge_n", edge_n, i64, (C,), dev)
-        # the kernel reads edges_flat[edge_base + cursor] for ptr0 <= cursor < edge_n
-        if C and (
-            int(ptr0.min()) < 0
-            or int(edge_base.min()) < 0
-            or int((edge_base + edge_n).max()) > edges_flat.shape[0]
-        ):
-            raise ValueError("edge cursors out of range of edges_flat")
         ptrs.update(ptr0=ptr0, edges_flat=edges_flat, edge_base=edge_base, edge_n=edge_n)
     if Scheme.ADAPT in schemes:
         if tables is None:
@@ -98,16 +95,13 @@ def prepare(schemes, A, B, valid, horizon, consts, ptr0=None, edges=None, tables
         check("tab_flat", tab_flat, f64, (tab_flat.shape[0],), dev)
         check("tab_off", tab_off, i64, (C,), dev)
         check("tab_top", tab_top, i64, (C,), dev)
-        # the kernel reads tab_flat[tab_off + i] for 0 <= i <= tab_top + 1
-        if C and (
-            int(tab_off.min()) < 0
-            or int(tab_top.min()) < 0
-            or int((tab_off + tab_top).max()) + 2 > tab_flat.shape[0]
-        ):
-            raise ValueError("survival-table offsets out of range of tab_flat")
         ptrs.update(tab_flat=tab_flat, tab_off=tab_off, tab_top=tab_top)
+    need_edge, need_adapt = Scheme.EDGE in schemes, Scheme.ADAPT in schemes
+    bad = out_of_range(ptr0 if need_edge else None, edges if need_edge else None, tables if need_adapt else None)
+    if bad:
+        raise ValueError("; ".join(bad))
 
-    codes = torch.tensor([SCHEME_CODES[s] for s in schemes], dtype=torch.int32, device=dev)
+    codes = (ctypes.c_int * S)(*(SCHEME_CODES[s] for s in schemes))  # read on the host at launch
     outs = (
         torch.empty((S, C), dtype=torch.bool, device=dev),  # done
         torch.empty((S, C), dtype=f64, device=dev),  # comp_time
@@ -118,18 +112,44 @@ def prepare(schemes, A, B, valid, horizon, consts, ptr0=None, edges=None, tables
         torch.empty((S, C, P), dtype=f64, device=dev),  # rec_end
         torch.empty((S, C, P), dtype=torch.bool, device=dev),  # rec_user
     )
+    rec_bits = torch.empty((S, C, (P + 31) // 32), dtype=torch.int32, device=dev)  # which periods have a record
     c = consts
     args = (
-        codes.data_ptr(), S, C, P,
+        codes, S, C, P,
         A.data_ptr(), B.data_ptr(), valid.data_ptr(), horizon.data_ptr(),
         *(0 if x is None else x.data_ptr() for x in ptrs.values()),
         float(c["init_saved"]), float(c["work_s"]), float(c["t_c"]), float(c["t_r"]),
         float(c["hour_delta"]), float(c["interval"]), float(c["bin_s"]), int(c["n_bins"]),
         *(x.data_ptr() for x in outs),
+        rec_bits.data_ptr(),
         stream(dev),
     )
-    keep = (codes, A, B, valid, horizon, *(x for x in ptrs.values() if x is not None))
+    keep = (A, B, valid, horizon, rec_bits, *(x for x in ptrs.values() if x is not None))
     return Launch(c_function("spot_sweep_launch", _ARGTYPES), args, keep, outs)
+
+
+def out_of_range(ptr0=None, edges=None, tables=None) -> list[str]:
+    """What the kernel would read out of bounds: the message of each range
+    check the inputs fail (none for good inputs).
+
+    The kernel reads ``edges_flat[edge_base + cursor]`` for ``ptr0 <= cursor <
+    edge_n`` and ``tab_flat[tab_off + i]`` for ``0 <= i <= tab_top + 1``.  The
+    six reductions are read back to the host together: one synchronization.
+    """
+    checks = []  # (two least values that must be >= 0, a largest end, its limit, message)
+    if edges is not None and ptr0.numel():
+        edges_flat, edge_base, edge_n = edges
+        checks.append((ptr0.min(), edge_base.min(), (edge_base + edge_n).max(), edges_flat.shape[0],
+                       "edge cursors out of range of edges_flat"))
+    if tables is not None and tables[1].numel():
+        tab_flat, tab_off, tab_top = tables
+        checks.append((tab_off.min(), tab_top.min(), (tab_off + tab_top).max() + 2, tab_flat.shape[0],
+                       "survival-table offsets out of range of tab_flat"))
+    if not checks:
+        return []
+    values = torch.stack([x for entry in checks for x in entry[:3]]).tolist()
+    return [msg for k, (*_, limit, msg) in enumerate(checks)
+            if min(values[3 * k], values[3 * k + 1]) < 0 or values[3 * k + 2] > limit]
 
 
 def launch(job: Launch):

@@ -77,8 +77,11 @@ def _adapt_decoupled(A, B, valid, horizon, c, tab):
     """ADAPT over every cell's own ``(period, decision-tick)`` cursor.
 
     One while loop advances each cell through its periods and ticks; period
-    entry (consuming too-short availability windows) is a masked phase of
-    the loop, so the iteration count is the busiest single cell's total.
+    entry (stepping over invalid periods and consuming too-short availability
+    windows) is a masked phase of the loop, so the iteration count is the
+    busiest single cell's total.  Any ``valid`` mask is walked as the TPU
+    kernel's masked period steps walk it: invalid periods are skipped, not
+    only a tail of them.
     The loop carries only ``(C,)`` vectors.  The run records are rebuilt
     after it: every processed period of a cell ends in exactly one record
     (mid-trace shorts and kills end at ``B[c, p]``, shorts at the horizon
@@ -95,7 +98,9 @@ def _adapt_decoupled(A, B, valid, horizon, c, tab):
     dev = A.device
     rows = torch.arange(C, device=dev)
     cnt = valid.sum(dim=1)
-    last = torch.clamp(cnt - 1, min=0)
+    # the first valid period at or after each p, and P past the last
+    nxt = torch.where(valid, torch.arange(P, device=dev), P).flip(1).cummin(dim=1).values.flip(1)
+    nxt = torch.cat([nxt, torch.full((C, 1), P, dtype=nxt.dtype, device=dev)], dim=1)
     zf = torch.zeros(C, dtype=torch.float64, device=dev)
     zi = torch.zeros(C, dtype=torch.int64, device=dev)
     saved = torch.full((C,), c["init_saved"], dtype=torch.float64, device=dev)
@@ -109,10 +114,11 @@ def _adapt_decoupled(A, B, valid, horizon, c, tab):
     while bool(alive.any()):
         # -- enter cells into their next period (shorts retry next iteration)
         ent = alive & entering
-        no_more = ent & (p >= cnt)
+        p = torch.where(ent, nxt[rows, p], p)
+        no_more = ent & (p >= P)
         alive = alive & ~no_more
         ent = ent & ~no_more
-        pc = torch.minimum(p, last)
+        pc = torch.clamp(p, max=P - 1)
         a = A[rows, pc]
         b = B[rows, pc]
         start_work = a + t_r

@@ -152,3 +152,51 @@ def test_training_config_is_glm4_at_its_published_widths(smoke):
     assert ckpt == pytest.approx(6.27e9, rel=1e-3)  # the int8 checkpoint
     assert sum(quantized(x, "int8") for x in tree_lib.leaves(state)) == 3 * 39  # params, mu, nu; not the step
     assert smoke.CAMPAIGN["codec"] == "int8" and smoke.CAMPAIGN["keep"] == 2
+
+
+def small_sweep(smoke, name, schemes=None):
+    """A small study's sweep through the plain version on the CPU: its
+    arguments (with ``schemes`` in place of the study's, if given) and outputs."""
+    from repro_torch.kernels.spot_sweep import ref
+
+    args = smoke.sweep_args(smoke.small_studies()[name], torch.device("cpu"))
+    if schemes is not None:
+        args = (schemes, *args[1:])
+    return args, ref.sweep_plain(*args)
+
+
+def processed_periods(args, out) -> np.ndarray:
+    """(S, C): the valid periods each (scheme, cell) walks, up to the completing one."""
+    valid = args[3].numpy()
+    done, user = out[0].numpy(), out[7].numpy()
+    P = valid.shape[1]
+    p_done = np.where(done, user.argmax(axis=2), P - 1)
+    return (valid[None] & (np.arange(P) <= p_done[..., None])).sum(axis=2)
+
+
+@pytest.mark.parametrize("name", ["synthetic", "resume_extreme_bids", "step_trace_edges", "golden_grid"])
+def test_chain_steps_cover_every_processed_period(smoke, name):
+    args, out = small_sweep(smoke, name)
+    steps = smoke.chain_steps(args, out)
+    per_row = processed_periods(args, out)
+    assert steps >= per_row.max() > 0
+    processed, walk_steps, _ = smoke.sweep_work(args, out)
+    assert np.array_equal(processed.sum(axis=2), per_row)
+    assert steps == (per_row + walk_steps.sum(axis=2)).max()
+    assert steps > per_row.max()  # the walking schemes add windows and ticks
+
+
+def test_chain_steps_of_none_and_opt_are_their_periods(smoke):
+    from repro_torch.core.schemes import Scheme
+
+    args, out = small_sweep(smoke, "golden_grid", (Scheme.NONE, Scheme.OPT))
+    assert smoke.chain_steps(args, out) == processed_periods(args, out).max()
+
+
+def test_sweep_row_reports_the_time_a_step_takes(smoke):
+    row = smoke.sweep_row(1, 0.0, 0.3125, 1717.4, (0.0404, "bytes"), 0.35, {"adapt": 0.3}, 625)
+    assert row["ns_per_step"] == 0.3125 * 1e6 / 625 == 500.0
+    assert row["chain_steps"] == 625 and row["by_scheme"] == {"adapt": 0.3}
+    assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"} <= set(row)
+    assert (row["bound_ms"], row["bound_by"], row["library_ms"], row["route"]) == (0.0404, "bytes", None, "cuda")

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import HOUR, SimParams, catalog, get_instance, step_trace, synthetic_trace
+from repro_torch.core.schemes import Scheme
 from repro_torch.engine import BID_LIMITED_SCHEMES, Scenario, TorchEngine
 from repro_torch.engine.batch import grid_and_tables
 from repro_torch.kernels import _build
@@ -130,6 +131,90 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="out of range"):
         kernel.spot_sweep(sc.schemes, A, B, V, H, consts, ptr0=arrs["ptr0"], edges=arrs["edges"],
                           tables=(flat[:1], off, top))
+
+
+SWEEP_OUTPUTS = ("done", "comp_time", "n_ckpt", "work_lost", "n_kills", "rec_exists", "rec_end", "rec_user")
+
+
+def sweep_inputs(sc, device):
+    """The sweep's arguments for ``sc`` as a dict (``schemes``, the grid arrays,
+    ``consts``, ``ptr0``, ``edges``, ``tables``)."""
+    grid, tables = grid_and_tables(sc, sc.materialize(), True)
+    arrs = ops.device_arrays(grid, device, True, True, sc.params.t_r, tables)
+    return dict(schemes=sc.schemes, A=arrs["A"], B=arrs["B"], valid=arrs["valid"], horizon=arrs["horizon"],
+                consts=ops.sweep_consts(sc, tables), ptr0=arrs["ptr0"], edges=arrs["edges"], tables=arrs["tables"])
+
+
+def cut_sweep_inputs(x, cells=None, periods=None):
+    """The last ``cells`` cells and the first ``periods`` periods of the sweep's inputs."""
+    c, p = slice(-cells if cells else None, None), slice(periods)
+    flat, base, n = x["edges"]
+    tab, off, top = x["tables"]
+    return dict(x, A=x["A"][c, p].contiguous(), B=x["B"][c, p].contiguous(), valid=x["valid"][c, p].contiguous(),
+                horizon=x["horizon"][c].contiguous(), ptr0=x["ptr0"][c, p].contiguous(),
+                edges=(flat, base[c].contiguous(), n[c].contiguous()), tables=(tab, off[c].contiguous(),
+                                                                                top[c].contiguous()))
+
+
+def sweep_case(name, device):
+    """Inputs that reach the corners of the kernel's design: one block a scheme
+    (subsets and orders of the schemes; C off 32 and 128, so blocks end in the
+    per-scheme padding), the record pass (P = 1, odd and even P; a non-prefix
+    ``valid`` mask; cells that complete in their first period) and ADAPT's
+    table clamp (tops at ``n_bins``)."""
+    base = Scenario.grid(  # 22 types x 2 seeds x 3 bids = 132 cells: one block and 4 cells
+        work_s=24 * HOUR, bids=[0.5, 0.55, 0.6], instances=catalog()[::3], horizon_days=10.0, seeds=(0, 1),
+        bid_fractions=True,
+    )
+    x = sweep_inputs(base, device)
+    S = BID_LIMITED_SCHEMES
+    if name == "adapt_only":
+        return dict(x, schemes=(Scheme.ADAPT,))
+    if name == "edge_none":
+        return dict(x, schemes=(Scheme.EDGE, Scheme.NONE))
+    if name == "all_reversed":
+        return dict(x, schemes=tuple(reversed(S)))
+    if name.startswith("cells_"):
+        return cut_sweep_inputs(x, cells=int(name.split("_")[1]))
+    if name.startswith("periods_"):
+        return cut_sweep_inputs(x, periods=int(name.split("_")[1]))
+    rng = np.random.default_rng(5)
+    if name == "holes":  # valid periods with invalid ones between them
+        holes = torch.from_numpy(rng.random(tuple(x["valid"].shape)) < 0.3).to(device)
+        return dict(x, valid=x["valid"] & ~holes)
+    if name == "first_period":  # 15 minutes of work: done in the first period long enough to start
+        return dict(x, consts=dict(x["consts"], work_s=900.0))
+    if name == "top_at_n_bins":  # 40 bins of 60 s, most tables topping out at n_bins
+        C, n_bins = x["A"].shape[0], 40
+        surv = -np.sort(-rng.random((C, n_bins + 2)), axis=1)
+        surv[:, -3:] = 0.0  # the last bins: survival 0 (hazard 1)
+        top = np.full(C, n_bins)
+        top[::7] = rng.integers(0, n_bins + 1, size=top[::7].shape)
+        tables = (torch.from_numpy(surv.reshape(-1).copy()).to(device),
+                  torch.arange(C, device=device) * (n_bins + 2), torch.from_numpy(top).to(device))
+        return dict(x, consts=dict(x["consts"], n_bins=n_bins), tables=tables)
+    raise KeyError(name)
+
+
+SWEEP_CASES = ("adapt_only", "edge_none", "all_reversed", "cells_77", "cells_33", "cells_1", "periods_1", "periods_9",
+               "periods_16", "holes", "first_period", "top_at_n_bins")
+
+
+@pytest.mark.parametrize("name", SWEEP_CASES)
+def test_kernel_matches_plain_version_bitwise_on_every_shape(cuda, name):
+    x = sweep_case(name, cuda)
+    args = (x["schemes"], x["A"], x["B"], x["valid"], x["horizon"], x["consts"], x["ptr0"], x["edges"], x["tables"])
+    before = kernel.launches
+    got = kernel.spot_sweep(*args)
+    want = ref.sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for n, g, w in zip(SWEEP_OUTPUTS, got, want):
+        assert_bitwise(g, w, n)
+    if name == "first_period":  # the case reaches what it names
+        p_first = torch.argmax((x["valid"] & (x["A"] + x["consts"]["t_r"] < x["B"])).to(torch.int8), dim=1)
+        done_first = got[7][:, torch.arange(x["A"].shape[0], device=cuda), p_first]
+        assert bool(done_first.any())
 
 
 def close(got, want, tol):

@@ -182,3 +182,74 @@ def test_unknown_impl_and_missing_gpu_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.spot_sweep_grid(sc.schemes, grid, sc, tables)
+
+
+def test_plain_sweep_walks_a_non_prefix_mask_as_the_tpu_kernel_does():
+    """With valid periods after invalid ones, every scheme (ADAPT's
+    cell-decoupled walk too) skips the invalid periods, as the Pallas
+    kernel's masked period steps do (run in interpret mode)."""
+    from repro.core.schemes import Scheme as RefScheme
+    from repro.kernels.spot_sweep import kernel as ref_kernel
+
+    __import__("repro.engine.jax_backend", fromlist=["_"])._require_jax()  # float64 in JAX
+    rsc = RefScenario.from_trace(
+        synthetic_trace(IT, 6, seed=3), 8 * 3600.0, bids=[0.40, 0.41, 0.42, 0.45, 5.0], schemes=REF_SCHEMES
+    )
+    sc, grid, tables = port_grid(rsc)
+    arrs = ops.device_arrays(grid, torch.device("cpu"), True, True, sc.params.t_r, tables)
+    holes = torch.from_numpy(np.random.default_rng(0).random(tuple(arrs["valid"].shape)) < 0.3)
+    valid = arrs["valid"] & ~holes
+    assert bool((valid.int().diff(dim=1) > 0).any())  # a valid period after an invalid one
+    consts = ops.sweep_consts(sc, tables)
+    want = ref_kernel.sweep_pallas(
+        tuple(RefScheme(s.value) for s in sc.schemes), arrs["A"].numpy(), arrs["B"].numpy(), valid.numpy(),
+        arrs["horizon"].numpy(), consts, ptr0=arrs["ptr0"].numpy(), edges=tuple(x.numpy() for x in arrs["edges"]),
+        tables=tuple(x.numpy() for x in arrs["tables"]), block_c=8, interpret=True,
+    )
+    got = ref.sweep_plain(sc.schemes, arrs["A"], arrs["B"], valid, arrs["horizon"], consts, arrs["ptr0"],
+                          arrs["edges"], arrs["tables"])
+    names = ("done", "comp_time", "n_ckpt", "work_lost", "n_kills", "rec_exists", "rec_end", "rec_user")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+def sweep_ranges():
+    """Edge and table inputs that are in range: 3 cells over 10 edges and 12
+    table entries."""
+    edges = (torch.zeros(10, dtype=torch.float64), torch.tensor([0, 4, 4]), torch.tensor([4, 6, 6]))
+    ptr0 = torch.tensor([[0, 1], [2, 6], [0, 0]])
+    tables = (torch.zeros(12, dtype=torch.float64), torch.tensor([0, 3, 7]), torch.tensor([1, 2, 3]))
+    return ptr0, edges, tables
+
+
+def test_range_checks_accept_good_inputs():
+    from repro_torch.kernels.spot_sweep import kernel
+
+    ptr0, edges, tables = sweep_ranges()
+    assert kernel.out_of_range(ptr0, edges, tables) == []
+    assert kernel.out_of_range(ptr0, edges, None) == kernel.out_of_range(None, None, tables) == []
+    assert kernel.out_of_range() == []
+    empty = (torch.zeros(0, 2, dtype=torch.int64), (edges[0], edges[1][:0], edges[2][:0]),
+             (tables[0], tables[1][:0], tables[2][:0]))
+    assert kernel.out_of_range(*empty) == []  # no cells: nothing is read
+
+
+@pytest.mark.parametrize(
+    "bad, what",
+    [
+        (lambda p, e, t: (p - 1, e, t), "edge"),  # a cursor below 0
+        (lambda p, e, t: (p, (e[0], e[1] - 1, e[2]), t), "edge"),  # a base below 0
+        (lambda p, e, t: (p, (e[0], e[1], e[2] + 1), t), "edge"),  # edges past edges_flat
+        (lambda p, e, t: (p, e, (t[0], t[1] - 1, t[2])), "table"),  # an offset below 0
+        (lambda p, e, t: (p, e, (t[0], t[1], t[2] - 2)), "table"),  # a top below 0
+        (lambda p, e, t: (p, e, (t[0], t[1], t[2] + 1)), "table"),  # entry top + 1 past tab_flat
+        (lambda p, e, t: (p - 1, e, (t[0][:11], t[1], t[2])), "both"),
+    ],
+)
+def test_range_checks_reject_bad_cursors_and_offsets(bad, what):
+    from repro_torch.kernels.spot_sweep import kernel
+
+    msgs = kernel.out_of_range(*bad(*sweep_ranges()))
+    edge = "edge cursors out of range of edges_flat"
+    table = "survival-table offsets out of range of tab_flat"
+    assert msgs == {"edge": [edge], "table": [table], "both": [edge, table]}[what]
