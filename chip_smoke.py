@@ -30,14 +30,30 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    with CUDA events, counts the study's longest dependent chain (periods plus
    windows or ticks of one (scheme, cell)) on the host, and prints one JSON
    line for the engine.
-5. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
+5. ACC, the paper's scheme, beside the other five (all six schemes): the small
+   studies of phase 3 through ``repro_torch.engine.run`` on the card, each
+   ``==`` the CPU engine on the 7 compared fields and ``==`` the port's scalar
+   ``ReferenceEngine`` on every field but ``cost`` (within ``COST_RTOL``:
+   the reference's compensated ``sum()``), and the golden study against the
+   digest of the JAX package's 7 fields (``GOLDEN_ACC_SHA256``); then the
+   full-width study with all six schemes on the card, ``spot_sweep`` launched
+   exactly once (counts reset just before, read just after), its ACC column
+   ``==`` a ``device="cpu"`` run of ACC alone.  Times ACC alone on the card
+   and on the CPU (``sim_s``, ``bill_s``, ``wall_s``; grid built beforehand),
+   profiles one more card run (device busy time, kernels launched,
+   read-backs, idle share) and prints one ``{"acc": ...}`` line with ACC
+   against OPT on the study.
+   Then runs ``repro_torch.launch.policy_compare`` (the paper's ensemble, all
+   six schemes) on the card and prints its table and one
+   ``{"policy_compare": ...}`` line.
+6. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
    its plain PyTorch version on the card at small shapes: causal and
    bidirectional attention, windows (one off the kv tile, one past Sk),
    ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 16}
    (3 divides no tile), head dims 16-256, float32 and bfloat16; scans of
    ragged lengths and widths on random inputs from a seed, the RG-LRU scan
    bit for bit (``torch.equal``) on both of its bodies.
-6. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
+7. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
    published config (every layer, random weights from a seeded
    ``torch.Generator`` on the card): 2 requests of 4096 prompt tokens, prefill,
    then 16 greedy decode steps, through ``repro_torch.models.transformer``,
@@ -50,16 +66,16 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    of the first layer that called it, beside its bound and (attention)
    ``scaled_dot_product_attention``.
    Prints one ``{"serving": ...}`` line per model.
-7. Holds the checkpoint codec kernel against its plain version on the card, bit
+8. Holds the checkpoint codec kernel against its plain version on the card, bit
    for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
    float32, bfloat16 and float16, all-zero blocks, exact .5 ties of a block's
    step, magnitudes across each type's finite range, and a NaN block.
-8. Small training checks on the card: for the smoke configs of the three
+9. Small training checks on the card: for the smoke configs of the three
    models, one ``loss_fn`` value and every parameter's gradient through the
    kernels' autograd Functions against ``impl="plain"`` (bf16: the loss within
    the serving tolerances; float32: the loss and each leaf's gradient); every
    parameter must get a nonzero gradient through the kernels.
-9. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
+10. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
    AdamW with float32 moments, batch 2 x 4096 tokens from ``TokenStream``,
    ``remat=False``, ``q_block = kv_block = 1024``) through
    ``repro_torch.train.steps.make_train_step``: holds the codec kernel against
@@ -67,17 +83,18 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    biggest; one untimed warm-up step (its loss against the same step's loss
    through ``impl="plain"``), then timed steps with their flash-attention
    launches counted; then a split of one step (forward, backward, optimizer).
-10. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
+11. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
    async writes, ``keep=2``, a checkpoint directory removed at exit) on the
    trace of ``tests/train/test_spot_trainer.py``: one preemption, one restore,
    ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
    restored state within half a quantization step per block of the saved
    one.  Prints one ``{"training": ...}`` line.
-11. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+12. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
-   and ``ns_per_step`` = ms × 1e6 / chain_steps).
-12. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
+   five-scheme study of phase 4 and the six-scheme study of phase 5).
+13. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -99,10 +116,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 FIELDS = ("completed", "completion_time", "cost", "n_checkpoints", "n_kills", "work_lost_s")
+#: The fields the six-scheme checks compare (``repro_torch.engine.parity.COMPARED``).
+ACC_FIELDS = ("completed", "completion_time", "cost", "n_checkpoints", "n_kills", "n_self_terminations", "work_lost_s")
 SWEEP_OUTPUTS = ("done", "comp_time", "n_ckpt", "work_lost", "n_kills", "rec_exists", "rec_end", "rec_user")
 
 #: sha256 of the FIELDS arrays of the JAX package's batch / jax engines on golden_study()
 GOLDEN_SHA256 = "deb6e6b79af47c3985bae6f24aca27db85bee815aee5629ea096f2aabd739cc4"
+#: sha256 of the ACC_FIELDS arrays of the JAX package's batch engine on golden_study() with all six schemes
+GOLDEN_ACC_SHA256 = "2ede5330a9c837554de8d0c40d5849ebd8e75a8bc669070023f7fcf6991aa20a"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor float64 and float32
 # rates, dense bf16 tensor-core rate
@@ -125,11 +146,11 @@ def golden_study():
     )
 
 
-def result_digest(res) -> str:
+def result_digest(res, fields=FIELDS) -> str:
     import numpy as np
 
     h = hashlib.sha256()
-    for f in FIELDS:
+    for f in fields:
         h.update(np.ascontiguousarray(getattr(res, f)).tobytes())
     return h.hexdigest()
 
@@ -162,13 +183,22 @@ def small_studies():
     }
 
 
-def full_study():
+def six_schemes(sc):
+    """The same study with all six schemes (ACC included)."""
+    import dataclasses
+
+    from repro_torch.engine import ALL_SCHEMES
+
+    return dataclasses.replace(sc, schemes=ALL_SCHEMES)
+
+
+def full_study(schemes=None):
     from repro_torch.engine import BID_LIMITED_SCHEMES, Scenario
 
     return Scenario.grid(
         work_s=24 * 3600.0,
         bids=[round(0.50 + 0.0025 * i, 4) for i in range(41)],
-        schemes=BID_LIMITED_SCHEMES,
+        schemes=BID_LIMITED_SCHEMES if schemes is None else schemes,
         horizon_days=30.0,
         seeds=(0, 1, 2, 3),
         bid_fractions=True,
@@ -206,12 +236,12 @@ def compare_outputs(got, want, what) -> float:
     return err
 
 
-def compare_results(got, want, what):
+def compare_results(got, want, what, fields=FIELDS):
     import numpy as np
 
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shapes {got.shape} vs {want.shape}")
-    for f in FIELDS:
+    for f in fields:
         if not np.array_equal(getattr(got, f), getattr(want, f)):
             raise AssertionError(f"{what}: field {f} differs")
 
@@ -353,6 +383,115 @@ def sweep_row(launches, max_err, ms, plain_ms, bound, wrapper_ms, by_scheme, ste
         "ns_per_step": ms * 1e6 / steps if steps else None,
         "match": True,
     }
+
+
+def acc_timings(res) -> dict:
+    """ACC's phase split of one engine run of ACC alone (host clock)."""
+    t = res.timings
+    return {"sim_s": t.sim_s, "bill_s": t.bill_s, "wall_s": res.wall_s, "grid_s": t.grid_s}
+
+
+def acc_profile(sc, device, wall_s) -> dict:
+    """One more run of ``sc`` (ACC alone) on the card under ``torch.profiler``.
+
+    Reads the profiler's raw events (building its per-op tables for the
+    ~0.6 M kernels of a full-width run takes minutes): the device's busy time
+    (the sum of its kernels' durations; one stream, so they do not overlap),
+    the kernels launched, the host's read-backs of device values
+    (``.any()``, ``int()``), and the idle share of ``wall_s``, an unprofiled
+    run's wall (the kernels take as long with the profiler as without it).
+    """
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import run
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(sc, device=device)
+        torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t0
+    busy_us, host = 0.0, Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_us += e.duration_ns() * 1e-3
+        else:
+            host[e.name()] += 1
+    busy_s = busy_us * 1e-6
+    return {
+        "profiled_wall_s": profiled_s,
+        "device_busy_s": busy_s if busy_s > 0 else None,  # None: the profiler saw no device time
+        "idle_share": 1.0 - busy_s / wall_s if busy_s > 0 else None,
+        "kernel_launches": host["cudaLaunchKernel"],
+        "read_backs": host["aten::_local_scalar_dense"],
+        "searchsorted": host["aten::searchsorted"],
+    }
+
+
+def acc_phase(device) -> int:
+    """Phase 5: ACC beside the other five schemes, on the card; returns the
+    sweep's launches on the six-scheme full-width study."""
+    import dataclasses
+
+    from repro_torch.core import Scheme
+    from repro_torch.engine import ALL_SCHEMES, COST_RTOL, ReferenceEngine, compare_results as parity, run
+    from repro_torch.engine.batch import grid_and_tables
+    from repro_torch.launch import policy_compare
+
+    for name, sc in small_studies().items():
+        sc = six_schemes(sc)
+        got = run(sc, device=device)
+        compare_results(got, run(sc, device="cpu"), f"six schemes {name}", ACC_FIELDS)
+        report = parity(sc, ReferenceEngine(keep_runs=False).run(sc), got)
+        if not report.ok:
+            raise AssertionError(f"six schemes {name}: card vs the scalar reference\n{report}")
+        print(f"six schemes {name}: card == CPU on {len(ACC_FIELDS)} fields, == scalar reference "
+              f"(cost within {COST_RTOL:g}), ACC completed {int(got.by_scheme(Scheme.ACC)['completed'].sum())} "
+              f"of {got.shape[0] * got.shape[1]}", flush=True)
+    golden = run(six_schemes(golden_study()), device=device)
+    if result_digest(golden, ACC_FIELDS) != GOLDEN_ACC_SHA256:
+        raise AssertionError("golden study, six schemes: results differ from the JAX package's")
+    print("golden study, six schemes: digest equals the JAX package's results", flush=True)
+
+    sc = full_study(ALL_SCHEMES)
+    reset_launches()
+    res = run(sc, device=device)  # the six-scheme main path, on the card
+    counts = read_launches()
+    launches = counts.pop("spot_sweep")
+    if launches != 1 or any(counts.values()):
+        raise AssertionError(f"six-scheme study: spot_sweep launched {launches} times (want 1), the others {counts}")
+    acc_only = dataclasses.replace(sc, schemes=(Scheme.ACC,))
+    grid_and_tables(acc_only, acc_only.materialize(), False)  # set-up, outside the timed runs
+    run(acc_only, device=device)  # warm-up: the device copies of the grid
+    card = run(acc_only, device=device)
+    cpu = run(acc_only, device="cpu")
+    a = sc.schemes.index(Scheme.ACC)
+    for f in ACC_FIELDS:
+        for label, other in (("card", card), ("cpu", cpu)):
+            if not (getattr(res, f)[:, :, a] == getattr(other, f)[:, :, 0]).all():
+                raise AssertionError(f"six-scheme study: ACC's {f} differs from ACC alone on the {label}")
+    if not res.completed[:, :, a].any() or not (res.n_kills[:, :, a] == 0).all():
+        raise AssertionError("six-scheme study: no ACC cell completed, or an ACC cell was provider-killed")
+    vs = policy_compare.vs_opt(policy_compare.summarize(res))
+    print(f"six schemes full width: {res.n_cells} cells, spot_sweep launches {launches}, ACC column == ACC alone "
+          f"on the card and on the CPU; ACC completed {int(res.completed[:, :, a].sum())} of {card.n_cells}",
+          flush=True)
+    profile = acc_profile(acc_only, device, card.wall_s) if device.type == "cuda" else None
+    print(json.dumps({"acc": {
+        "cells": card.n_cells, "card": acc_timings(card), "cpu": acc_timings(cpu), "card_profile": profile,
+        "self_terminations": int(card.n_self_terminations.sum()), "completed": int(card.completed.sum()),
+        "vs_opt": {"cost_pct": vs["cost_pct"], "time_pct": vs["time_pct"]},
+        "six_scheme_wall_s": res.wall_s,
+    }}), flush=True)
+
+    out = policy_compare.main(["--device", str(device)])
+    print(json.dumps({"policy_compare": {
+        "cells": out["cells"], "wall_s": out["wall_s"], "vs_opt": out["vs_opt"], "paper": policy_compare.PAPER_VS_OPT,
+    }}), flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1413,28 +1552,33 @@ def main() -> int:
     print(json.dumps({"engine": {"cells": res.n_cells, "setup_s": setup_s, **walls}}), flush=True)
     del sc, args, res, res_plain, out, out_plain, job
 
-    # -- 5. the model kernels vs their plain versions at small shapes --------
+    # -- 5. ACC beside the other five schemes -----------------------------------
+    six_launches = acc_phase(device)
+    sweep_entry["launches_by_path"] = {"five_schemes": sweep_entry["launches"], "six_schemes": six_launches}
+    sweep_entry["launches"] += six_launches
+
+    # -- 6. the model kernels vs their plain versions at small shapes --------
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     small_errs = small_kernel_checks(device)
 
-    # -- 6. serving at full width -------------------------------------------
+    # -- 7. serving at full width -------------------------------------------
     found = serve_models(device)
 
-    # -- 7. the codec kernel vs its plain version at small sizes ---------------
+    # -- 8. the codec kernel vs its plain version at small sizes ---------------
     small_codec_checks(device)
 
-    # -- 8. training through the kernels at small sizes -----------------------
+    # -- 9. training through the kernels at small sizes -----------------------
     small_train = small_training_checks(device)
 
-    # -- 9. training at full width --------------------------------------------
+    # -- 10. training at full width --------------------------------------------
     training, codec_measured = train_full_width(device)
 
-    # -- 10. the spot campaign at full width ----------------------------------
+    # -- 11. the spot campaign at full width ----------------------------------
     campaign = spot_campaign(device)
     print(json.dumps({"training": {"card": card, **training, "campaign": campaign, "small": small_train}}), flush=True)
 
-    # -- 11. the kernels line -------------------------------------------------
+    # -- 12. the kernels line -------------------------------------------------
     rows = model_kernel_rows(found, small_errs)
     for row in rows:
         extra = campaign["launches"].get(row["name"], 0) + (
@@ -1445,7 +1589,7 @@ def main() -> int:
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
     print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
-    # -- 12. the result line ------------------------------------------------
+    # -- 13. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

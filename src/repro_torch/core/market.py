@@ -69,6 +69,10 @@ class InstanceType:
     on_demand: float  # $/h
     compute_units: float  # relative ECU throughput (scales job speed)
 
+    @property
+    def key(self) -> str:
+        return f"{self.hardware}/{self.region}/{self.os}"
+
 
 _ECU = {
     "m1.small": 1.0,
@@ -174,6 +178,28 @@ class PriceTrace:
             ends = np.concatenate((ends, [len(self.prices)]))
         # times[len(prices)] is the horizon, so both cases read self.times.
         return [(float(self.times[s]), float(self.times[e])) for s, e in zip(starts, ends)]
+
+    def next_available(self, bid: float, t: float) -> float | None:
+        """Earliest time ``>= t`` with ``price <= bid`` (None if never again)."""
+        if t >= self.horizon:
+            return None
+        i = self.segment_index(t)
+        ok = self.prices <= bid
+        if ok[i]:
+            return t
+        later = np.nonzero(ok[i + 1 :])[0]
+        if len(later) == 0:
+            return None
+        return float(self.times[i + 1 + later[0]])
+
+    def next_out_of_bid(self, bid: float, t: float) -> float:
+        """End of the availability period containing ``t``: first boundary
+        after ``t`` whose segment price exceeds ``bid`` (horizon if none)."""
+        i = self.segment_index(t)
+        bad = np.nonzero(self.prices[i + 1 :] > bid)[0]
+        if len(bad) == 0:
+            return self.horizon
+        return float(self.times[i + 1 + bad[0]])
 
     def rising_edges(self) -> np.ndarray:
         """Times at which the price strictly increases."""
@@ -364,6 +390,58 @@ def ensemble_seed(instance: InstanceType, base_seed: int = 0, i: int = 0) -> int
         raise ValueError("base_seed must be non-negative")
     h = zlib.crc32(instance.name.encode())
     return ((base_seed * 1000 + i) << 32) | h
+
+
+def synthetic_traces_batch(
+    instances: Sequence[InstanceType],
+    horizon_days: float = 30.0,
+    base_seed: int = 0,
+    n_seeds: int = 1,
+) -> dict[str, list[PriceTrace]]:
+    """Batched, decorrelated traces for a set of instance types.
+
+    Returns ``{instance.name: [trace_for_seed_0, ..., trace_for_seed_{n-1}]}``
+    generated in one :func:`sample_traces_batch` call with
+    :func:`ensemble_seed` streams.
+    """
+    models = []
+    seeds = []
+    for it in instances:
+        m = TraceModel.for_instance(it)
+        for i in range(n_seeds):
+            models.append(m)
+            seeds.append(ensemble_seed(it, base_seed, i))
+    traces = sample_traces_batch(models, horizon_days * 24 * HOUR, seeds)
+    out: dict[str, list[PriceTrace]] = {}
+    for j, it in enumerate(instances):
+        out[it.name] = traces[j * n_seeds : (j + 1) * n_seeds]
+    return out
+
+
+def trace_ensemble(
+    instance: InstanceType,
+    n: int = 8,
+    horizon_days: float = 30.0,
+    seed: int = 0,
+) -> list[PriceTrace]:
+    return [synthetic_trace(instance, horizon_days, seed * 1000 + i) for i in range(n)]
+
+
+def shift_trace(trace: PriceTrace, offset_s: float) -> PriceTrace:
+    """View of ``trace`` starting at ``offset_s`` (new t=0).  Lets ensembles
+    sample job start times without regenerating traces."""
+    if offset_s <= 0:
+        return trace
+    if offset_s >= trace.horizon:
+        raise ValueError("offset beyond horizon")
+    i = trace.segment_index(offset_s)
+    times = np.concatenate([[0.0], trace.times[i + 1 :] - offset_s])
+    prices = trace.prices[i:]
+    return PriceTrace(times=times, prices=prices)
+
+
+def constant_trace(price: float, horizon_s: float = 30 * 24 * HOUR) -> PriceTrace:
+    return PriceTrace(times=np.asarray([0.0, horizon_s]), prices=np.asarray([price]))
 
 
 def step_trace(segments: Sequence[tuple[float, float]], horizon_s: float | None = None) -> PriceTrace:

@@ -37,6 +37,9 @@ class Scheme(enum.Enum):
     ACC = "acc"
 
 
+REALISTIC_SCHEMES = (Scheme.HOUR, Scheme.EDGE, Scheme.ADAPT, Scheme.ACC)
+ALL_SCHEMES = tuple(Scheme)
+
 
 @dataclasses.dataclass(frozen=True)
 class SimParams:
@@ -57,7 +60,8 @@ class SimParams:
 
 
 # ---------------------------------------------------------------------------
-# Empirical failure model (the source of the ADAPT decision tables)
+# Empirical failure model (ADAPT's decision tables, the scalar ADAPT rule,
+# provisioning's Eq. 8)
 # ---------------------------------------------------------------------------
 
 
@@ -71,8 +75,10 @@ class FailurePdf:
     mass ``censored``.
 
     Survival queries go through a lazily-built *binned survival table*
-    (:meth:`survival_table`), the numeric source of the batched ADAPT
-    decision tables (:class:`repro_torch.engine.kernels.AdaptTables`).
+    (:meth:`survival_table`), the one numeric source of the batched ADAPT
+    decision tables (:class:`repro_torch.engine.kernels.AdaptTables`), the
+    scalar ADAPT rule (:func:`adapt_should_checkpoint`) and provisioning's
+    Eq. 8, so the "checkpoint now?" decision is the same bit pattern in each.
     """
 
     #: default binning of :meth:`from_trace` (one minute bins, a 7-day range)
@@ -143,6 +149,41 @@ class FailurePdf:
             cached = np.concatenate([tab[: top + 1], [self.censored]]), top
             object.__setattr__(self, "_compact_survival", cached)  # frozen-safe
         return cached
+
+    def survival(self, age_s: float) -> float:
+        """P(period lasts longer than ``age_s``)."""
+        k = int(age_s / self.bin_s)
+        return float(self.survival_table()[min(k, len(self.pdf))])
+
+    def hazard(self, age_s: float, window_s: float) -> float:
+        """P(fail within ``window_s`` | survived to ``age_s``)."""
+        s_now = self.survival(age_s)
+        if s_now <= 0.0:
+            return 1.0
+        s_later = self.survival(age_s + window_s)
+        return float(np.clip((s_now - s_later) / s_now, 0.0, 1.0))
+
+
+def adapt_should_checkpoint(
+    pdf: FailurePdf,
+    age_s: float,
+    unsaved_work_s: float,
+    params: SimParams,
+) -> bool:
+    """Yi et al.'s ADAPT rule (expected-recovery-time comparison).
+
+    Skipping risks re-doing ``unsaved_work_s`` plus a restart; taking costs
+    ``t_c`` now.  Checkpoint iff the expected loss of skipping over the next
+    decision window exceeds the certain cost of taking.
+    """
+    h = pdf.hazard(age_s, params.adapt_interval_s)
+    expected_loss_skip = h * (unsaved_work_s + params.t_r)
+    return expected_loss_skip > params.t_c
+
+
+# ---------------------------------------------------------------------------
+# ACC decision points (paper Eq. 3-4)
+# ---------------------------------------------------------------------------
 
 
 def decision_points(hour_boundary: float, params: SimParams) -> tuple[float, float]:

@@ -5,38 +5,28 @@ the step counter: restoring a checkpoint restores the exact data order with
 no buffered state to persist (the paper's E_launch workflow: "resume tasks" =
 restore params + optimizer state + one integer).
 
-The synthetic corpus has the JAX package's distribution: tokens uniform in
-log-rank space (a Zipf-like unigram), clipped to ``[1, vocab_size)``, and EOS
-with probability ``1 / mean_doc_len``; ``tokens`` and ``labels`` are the same
-int32 sequence shifted by one.  The JAX package draws from threefry, which
-PyTorch does not have, so the numbers differ from it: each batch is drawn
-from a CPU ``torch.Generator`` seeded with a fixed mix of (seed, step) and
-then moved to the stream's device, which makes a batch the same on the CPU
-and on the card.
+The synthetic corpus is the JAX package's, drawn from the same numbers:
+``fold_in(PRNGKey(seed), step)`` split in two keys, float32 uniforms from
+the first taken to the power of ``vocab_size - 1`` (a Zipf-like unigram in
+log-rank space), cast to int32 and clipped to ``[1, vocab_size)``, and EOS
+where a uniform of the second key falls under ``1 / mean_doc_len``;
+``tokens`` and ``labels`` are the same int32 sequence shifted by one.  The
+keys and uniforms come from :mod:`repro_torch.data.threefry` and are bit for
+bit ``jax.random``'s; a token can differ only where float32 ``exp`` lands
+within an ulp of an integer, where PyTorch's and XLA's ``exp`` round
+differently.  Each batch is drawn on the CPU and then moved to the stream's
+device, which makes a batch the same on the CPU and on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
+import numpy as np
 import torch
 
+from repro_torch.data import threefry
 from repro_torch.engine.base import resolve_device
-
-_MASK64 = (1 << 64) - 1
-
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def batch_seed(seed: int, step: int) -> int:
-    """The generator seed of the batch at ``step`` (a 63-bit mix of both)."""
-    return _splitmix64(_splitmix64(seed & _MASK64) ^ (step & _MASK64)) >> 1
 
 
 @dataclasses.dataclass
@@ -60,14 +50,16 @@ class TokenStream:
 
     def batch_at(self, step: int) -> dict:
         """Pure: the batch for a given step."""
-        gen = torch.Generator(device="cpu").manual_seed(batch_seed(self.seed, step))
+        key = threefry.fold_in(threefry.prng_key(self.seed), step)
+        k1, k2 = threefry.split(key)
         shape = (self.batch, self.seq_len + 1)
-        # zipf-ish unigram: uniform in log-rank space
-        u = torch.rand(shape, generator=gen, dtype=torch.float32)
-        ranks = torch.exp(u * math.log(self.vocab_size - 1)).to(torch.int32)
+        # zipf-ish unigram: uniform in log-rank space (float32 throughout, as
+        # JAX multiplies by the float32 value of the float64 log)
+        u = threefry.uniform(k1, shape)
+        ranks = torch.exp(u * torch.tensor(np.float32(np.log(self.vocab_size - 1)))).to(torch.int32)
         tokens = torch.clamp(ranks, 1, self.vocab_size - 1)
         # EOS boundaries with prob 1/mean_doc_len
-        eos_mask = torch.rand(shape, generator=gen, dtype=torch.float32) < (1.0 / self.mean_doc_len)
+        eos_mask = threefry.uniform(k2, shape) < torch.tensor(np.float32(1.0 / self.mean_doc_len))
         tokens = torch.where(eos_mask, torch.tensor(self.eos, dtype=torch.int32), tokens)
         dev = resolve_device(self.device)
         return {

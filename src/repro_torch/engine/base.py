@@ -3,10 +3,13 @@
 An :class:`Engine` consumes a :class:`~repro_torch.engine.scenario.Scenario`
 and returns an :class:`EngineResult` — per-cell outcome arrays shaped
 ``(n_markets, n_bids, n_schemes)``, host NumPy arrays whatever device
-simulated them.  One backend ships:
+simulated them.  Two backends ship:
 :class:`~repro_torch.engine.torch_backend.TorchEngine`, the fused spot sweep
 (:mod:`repro_torch.kernels.spot_sweep`) on a torch device — the hand-written
-CUDA kernel on the GPU, its plain PyTorch version on the CPU.
+CUDA kernel on the GPU, its plain PyTorch version on the CPU — with ACC's
+lockstep walk beside it; and
+:class:`~repro_torch.engine.reference.ReferenceEngine`, the scalar event loop
+on the host, the yardstick of :mod:`repro_torch.engine.parity`.
 
 ``run(scenario)`` is the one-call surface.  It runs on the GPU unless the
 caller passes ``device="cpu"``, and raises when there is no GPU.
@@ -73,9 +76,9 @@ class PhaseTimings:
 class EngineResult:
     """SoA outcome grid: axis 0 markets, axis 1 bids, axis 2 schemes.
 
-    ``sim_results`` stays ``None`` here (no backend of this package keeps
-    per-run records); :meth:`cell` reconstructs a run-less
-    :class:`SimResult`.
+    ``sim_results`` holds per-cell :class:`SimResult` records (with their
+    billed runs) only when the reference engine was asked to keep them;
+    otherwise :meth:`cell` reconstructs a run-less :class:`SimResult`.
     """
 
     scenario: Scenario
@@ -130,6 +133,19 @@ class EngineResult:
             work_lost_s=float(self.work_lost_s[market, bid, s]),
             runs=[],
         )
+
+    def by_scheme(self, scheme: Scheme) -> dict[str, np.ndarray]:
+        """(M, B) slices of every outcome array for one scheme."""
+        s = self.scheme_index(scheme)
+        return {
+            "completed": self.completed[:, :, s],
+            "completion_time": self.completion_time[:, :, s],
+            "cost": self.cost[:, :, s],
+            "n_checkpoints": self.n_checkpoints[:, :, s],
+            "n_kills": self.n_kills[:, :, s],
+            "n_self_terminations": self.n_self_terminations[:, :, s],
+            "work_lost_s": self.work_lost_s[:, :, s],
+        }
 
 
 def fold_result_counters(tel: Telemetry, res: EngineResult) -> None:
@@ -191,14 +207,21 @@ def resolve_device(device=None) -> torch.device:
 
 def get_engine(name: str = "auto", device=None) -> Engine:
     """Resolve an engine by name: ``"auto"`` or ``"torch"`` (the same
-    :class:`~repro_torch.engine.torch_backend.TorchEngine`).  ``device``
-    defaults to the GPU; without one this raises rather than running on the
-    CPU — pass ``device="cpu"`` for that."""
+    :class:`~repro_torch.engine.torch_backend.TorchEngine`), or
+    ``"reference"`` (the scalar
+    :class:`~repro_torch.engine.reference.ReferenceEngine`, host Python).
+    For the torch engine ``device`` defaults to the GPU; without one this
+    raises rather than running on the CPU — pass ``device="cpu"`` for that."""
+    from repro_torch.engine.reference import ReferenceEngine
     from repro_torch.engine.torch_backend import TorchEngine
 
     if name in ("auto", "torch"):
         return TorchEngine(device=device)
-    raise ValueError(f"unknown engine {name!r}; expected auto|torch")
+    if name == "reference":
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError("the reference engine runs on the host; it takes no device")
+        return ReferenceEngine()
+    raise ValueError(f"unknown engine {name!r}; expected auto|torch|reference")
 
 
 def run(scenario: Scenario, engine: str | Engine = "auto", device=None) -> EngineResult:

@@ -1,6 +1,7 @@
 """Pure scheme step bodies: the per-period lockstep math in torch float64.
 
-Every bid-limited scheme (NONE / OPT / HOUR / EDGE / ADAPT) is expressed
+Every bid-limited scheme (NONE / OPT / HOUR / EDGE / ADAPT), and ACC's
+hour-boundary lease step (:func:`acc_lease_tick`), is expressed
 here as a pure function over tensors — no engine state, no trace objects, no
 I/O — on whatever device its inputs lie.  They are the plain PyTorch form of
 the fused sweep (:mod:`repro_torch.kernels.spot_sweep.ref` composes them),
@@ -37,6 +38,7 @@ __all__ = [
     "_kernel_none",
     "_kernel_opt",
     "_survival_at",
+    "acc_lease_tick",
     "adapt_decision",
     "adapt_tick",
     "adapt_tick_core",
@@ -304,9 +306,12 @@ def adapt_decision(age, unsaved, flat, off, top, bin_s, n_bins, t_c, t_r, interv
     s_now, 0, 1)`` (1 when the survival mass is exhausted), checkpoint iff
     ``h * (unsaved + t_r) > t_c``.
     """
-    k1 = (age / bin_s).to(torch.int64)
+    # the divisor as a tensor on the device: CUDA divides by a host scalar
+    # through its reciprocal, which is not the IEEE quotient
+    bin_t = torch.full((), bin_s, dtype=age.dtype, device=age.device)
+    k1 = (age / bin_t).to(torch.int64)
     s_now = _survival_at(k1, flat, off, top, n_bins)
-    k2 = ((age + interval) / bin_s).to(torch.int64)
+    k2 = ((age + interval) / bin_t).to(torch.int64)
     s_later = _survival_at(k2, flat, off, top, n_bins)
     dead = s_now <= 0.0
     den = torch.where(dead, 1.0, s_now)
@@ -364,3 +369,41 @@ def adapt_tick(state, a, b, work_s, t_c, t_r, interval, flat, off, top, bin_s, n
     done_at = torch.where(fin, d_at, done_at)
     ckpt_add = ckpt_add + ck.to(torch.int64)
     return live, t, work, sv, next_dec, done_now, done_at, ckpt_add
+
+
+def acc_lease_tick(live, t_h, take_ckpt, term_q, t, work, sv, work_s, t_c):
+    """One ACC hour-boundary step for every in-lease lane.
+
+    The port of :func:`repro.engine.kernels.acc_lease_tick`: one iteration
+    of the ``while True`` loop in ``simulator._acc_lease``, with the two
+    price queries hoisted to the caller — ``take_ckpt`` is ``price_at(t_h -
+    t_c - t_w) > a_bid`` and ``term_q`` is ``price_at(t_h - t_w) > a_bid``
+    (Eq. 4 decision points).  The caller owns the hour cadence and the
+    horizon-runoff break, which happen *before* this tick.
+
+    Order matters and is the scalar's, expression for expression: the
+    checkpoint-shortened segment end, the completion test (association
+    ``work + (seg_end - t)`` and ``t + (work_s - work)``), the
+    *unconditional* ``t = seg_end`` for lanes that neither finished nor
+    advanced, then checkpoint commit (``sv = work``, ``t = t_h``), then the
+    self-termination query.
+
+    Returns ``(live, t, work, sv, d_at, fin, ck, term)``: surviving lanes,
+    advanced clocks, the would-be completion time ``d_at`` (valid on ``fin``
+    lanes), and the completion / checkpoint-taken / self-terminated masks
+    (terminated lanes stop at ``t_h``).
+    """
+    seg_end = torch.where(take_ckpt, t_h - t_c, t_h)
+    adv = live & (seg_end > t)
+    fin = adv & (work + (seg_end - t) >= work_s - _EPS)
+    d_at = t + (work_s - work)
+    live = live & ~fin
+    adv = adv & ~fin
+    work = torch.where(adv, work + (seg_end - t), work)
+    t = torch.where(live, seg_end, t)
+    ck = live & take_ckpt
+    sv = torch.where(ck, work, sv)
+    t = torch.where(ck, t_h, t)
+    term = live & term_q
+    live = live & ~term
+    return live, t, work, sv, d_at, fin, ck, term

@@ -38,6 +38,10 @@ from repro_torch.core.schemes import Scheme, SimParams
 #: the bid): everything except ACC, whose instances are never provider-killed.
 BID_LIMITED_SCHEMES = (Scheme.NONE, Scheme.OPT, Scheme.HOUR, Scheme.EDGE, Scheme.ADAPT)
 
+#: Every scheme the engine evaluates on the cell grid: the bid-limited five
+#: through the fused sweep, ACC through its own lockstep seek / lease walk.
+BATCHED_SCHEMES = BID_LIMITED_SCHEMES + (Scheme.ACC,)
+
 
 def _trace_digest(trace: PriceTrace) -> dict:
     """Content digest of a piecewise-constant trace for canonical hashing:
@@ -137,8 +141,8 @@ class Scenario:
         label: str = "trace0",
         initial_saved_work: float = 0.0,
     ) -> "Scenario":
-        """Single explicit-trace study.  The default scheme set includes ACC,
-        which this package does not run yet: pass ``BID_LIMITED_SCHEMES``."""
+        """Single explicit-trace study over every scheme by default (ACC
+        included), as :meth:`repro.engine.Scenario.from_trace`."""
         return Scenario(
             work_s=work_s,
             bids=tuple(float(b) for b in bids),

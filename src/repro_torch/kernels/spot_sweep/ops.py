@@ -16,6 +16,13 @@ device and returns the per-scheme output dicts of
 The sweep's states and per-period run records come back to the host, where
 the NumPy biller folds the records into costs, so ``cost`` is the same
 left-to-right sum on every device.
+
+ACC is not period-structured and has no kernel: as in
+:func:`repro.kernels.spot_sweep.ops.spot_sweep_grid`, it is routed to its
+own lockstep walk (:func:`repro_torch.engine.batch._run_acc`, torch ops on
+the same device) under a ``sim`` span of its own, and the kernel gets the
+other five schemes in its one launch.  A scheme set of ACC alone launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from repro_torch.core.schemes import Scheme
 from repro_torch.engine.base import resolve_device
-from repro_torch.engine.batch import _bill_runs_flat
+from repro_torch.engine.batch import _bill_runs_flat, _run_acc
 from repro_torch.kernels import IMPLS, check_impl
 from repro_torch.kernels.spot_sweep import kernel, ref
 from repro_torch.obs import telemetry as obs
@@ -90,19 +97,27 @@ def spot_sweep_grid(schemes, grid, scenario, adapt_tables=None, device=None, imp
     Returns ``(outs, info)``: ``outs`` maps each scheme to the standard
     output dict (``completed`` / ``completion_time`` / ``cost`` /
     ``n_checkpoints`` / ``n_kills`` / ``work_lost_s``, host NumPy arrays),
-    ``info`` carries the ``impl`` label (``"cuda"`` or ``"plain"``).  The sim
-    and billing phases are recorded as telemetry spans (``sim`` with an
-    ``impl`` attr, ``bill`` per scheme).
+    ``info`` carries the sweep's ``impl`` label (``"cuda"`` or ``"plain"``).
+    The sim and billing phases are recorded as telemetry spans (``sim`` with
+    an ``impl`` attr — ``"torch"`` for ACC's own — and ``bill`` per scheme).
     """
     check_impl(impl)
     schemes = tuple(schemes)
     dev = resolve_device(device)
     params = scenario.params
+    label = "cuda" if impl is None and dev.type == "cuda" else "plain"
+    tel = obs.current()
+    outs: dict[Scheme, dict] = {}
+    if Scheme.ACC in schemes:
+        with tel.span("sim", scheme=Scheme.ACC.value, impl="torch"):
+            outs[Scheme.ACC] = _run_acc(grid, scenario, dev)
+        schemes = tuple(s for s in schemes if s is not Scheme.ACC)
+        if not schemes:
+            return outs, {"impl": label}
+
     need_edge = Scheme.EDGE in schemes
     need_adapt = Scheme.ADAPT in schemes
-    label = "cuda" if impl is None and dev.type == "cuda" else "plain"
     sweep = ref.sweep_plain if impl == "plain" else kernel.spot_sweep
-    tel = obs.current()
 
     with tel.span("sim", impl=label):
         arrs = device_arrays(grid, dev, need_edge, need_adapt, params.t_r, adapt_tables)
@@ -116,7 +131,6 @@ def spot_sweep_grid(schemes, grid, scenario, adapt_tables=None, device=None, imp
         done, comp, ckpt, lost, kills, rex, rend, ruser = (x.cpu().numpy() for x in out)
 
     delta = float(params.billing_period_s)
-    outs: dict[Scheme, dict] = {}
     for si, scheme in enumerate(schemes):
         with tel.span("bill", scheme=scheme.value):
             cc, pp = np.nonzero(rex[si])

@@ -200,3 +200,18 @@ def test_sweep_row_reports_the_time_a_step_takes(smoke):
     assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"} <= set(row)
     assert (row["bound_ms"], row["bound_by"], row["library_ms"], row["route"]) == (0.0404, "bytes", None, "cuda")
+
+
+def test_acc_phase_runs_every_study_with_all_six_schemes(smoke):
+    from repro_torch.engine import ALL_SCHEMES
+
+    for name, sc in smoke.small_studies().items():
+        six = smoke.six_schemes(sc)
+        assert six.schemes == ALL_SCHEMES, name
+        assert {k: v for k, v in six.canonical().items() if k != "schemes"} == {
+            k: v for k, v in sc.canonical().items() if k != "schemes"
+        }
+    full = smoke.full_study(ALL_SCHEMES)
+    assert full.n_cells == 62976 and full.n_markets * len(full.bids) == 10496
+    assert smoke.full_study().schemes == smoke.full_study(None).schemes != ALL_SCHEMES
+    assert set(smoke.ACC_FIELDS) == set(smoke.FIELDS) | {"n_self_terminations"}

@@ -15,6 +15,8 @@ them on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import HOUR, SimParams, catalog, get_instance, step_trace, synthetic_trace
 from repro_torch.core.schemes import Scheme
-from repro_torch.engine import BID_LIMITED_SCHEMES, Scenario, TorchEngine
+from repro_torch.engine import ALL_SCHEMES, BID_LIMITED_SCHEMES, COMPARED, Scenario, TorchEngine
 from repro_torch.engine.batch import grid_and_tables
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash
@@ -112,6 +114,25 @@ def test_engine_on_card_equals_engine_on_cpu(cuda):
         np.testing.assert_array_equal(getattr(on_card, field), getattr(on_cpu, field), err_msg=field)
     with obs.retrace_guard(_build.BUILD_SCOPE):  # the built library is reused
         TorchEngine(device=cuda).run(sc)
+
+
+@pytest.mark.parametrize("name", ["synthetic", "resume", "step_trace", "grid"])
+def test_six_schemes_on_card_equal_the_cpu(cuda, name):
+    """ACC's lockstep walk runs in torch ops on the card beside the one sweep
+    launch of the other five schemes; every field equals the CPU engine's."""
+    sc = dataclasses.replace(scenarios()[name], schemes=ALL_SCHEMES)
+    before = kernel.launches
+    on_card = TorchEngine(device=cuda).run(sc)
+    assert kernel.launches == before + 1
+    on_cpu = TorchEngine(device="cpu").run(sc)
+    for field in COMPARED:
+        np.testing.assert_array_equal(getattr(on_card, field), getattr(on_cpu, field), err_msg=field)
+    acc_only = dataclasses.replace(sc, schemes=(Scheme.ACC,))
+    alone = TorchEngine(device=cuda).run(acc_only)
+    assert kernel.launches == before + 1  # ACC alone launches no kernel
+    a = ALL_SCHEMES.index(Scheme.ACC)
+    for field in COMPARED:
+        np.testing.assert_array_equal(getattr(alone, field)[:, :, 0], getattr(on_cpu, field)[:, :, a], err_msg=field)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):

@@ -98,11 +98,10 @@ def test_explicit_traces_carry_over_and_are_checked():
 
 
 def test_acc_and_contended_markets_raise():
+    """Contended markets are not ported yet and raise; ACC runs now (its
+    checks are in ``tests/test_torch_acc.py``), so only the contended half of
+    this test is left."""
     tr = synthetic_trace(get_instance("m1.xlarge"), 3, seed=5)
-    sc = Scenario.from_trace(tr, 5 * HOUR, bids=[0.40])  # default schemes include ACC
-    assert Scheme.ACC in sc.schemes
-    with pytest.raises(NotImplementedError, match="acc"):
-        run(sc, device="cpu")
     with pytest.raises(NotImplementedError, match="capacity"):
         Scenario(work_s=5 * HOUR, bids=(0.40,), traces=(tr,), capacity=8)
     rsc = RefScenario.grid(

@@ -79,6 +79,12 @@ def test_every_module_is_found():
         "repro_torch.optim.adamw",
         "repro_torch.optim.schedule",
         "repro_torch.train.spot_trainer",
+        "repro_torch.core.appdef",
+        "repro_torch.core.provision",
+        "repro_torch.data.threefry",
+        "repro_torch.engine.parity",
+        "repro_torch.engine.reference",
+        "repro_torch.launch.policy_compare",
     ):
         assert required in names
 
