@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, serve and train.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets and the fleet, serve and train.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -46,14 +46,42 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    Then runs ``repro_torch.launch.policy_compare`` (the paper's ensemble, all
    six schemes) on the card and prints its table and one
    ``{"policy_compare": ...}`` line.
-6. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
+6. Capacity studies on the card (contended markets, ``capacity=`` / ``demand=``):
+   small contended studies — the engine sweep of ``examples/market_contention.py``
+   (HOUR, demand 1-4 in a pool of 4), the step-trace edges and the golden grid,
+   contended — each with the kernel == plain version on every output and the card
+   == the CPU on the 7 fields; the contended golden study against the digest of
+   the JAX package's batch engine (``GOLDEN_CAPACITY_SHA256``; the pool of 4
+   with a block of 3).  Then phase 4's full-width study with ``capacity=4``,
+   ``demand=2`` and the default ``MarketParams``, and again with ``demand=3``
+   (the first block that binds): each with ``spot_sweep`` launched exactly once
+   (counts reset just before, read just after), every field == the plain version
+   on the card.  Prints how many markets' cleared traces differ from the
+   exogenous ones, the kills against the uncontended study, and one
+   ``{"market": ...}`` line (wall, ``sim_s``, ``bill_s``, the clearing's host
+   seconds, for each block).
+7. The fleet on the card: ``tests/fleet/test_batch_parity.py``'s small grid
+   under every scheme through ``run_fleet`` (the batch engine's EET and attempt
+   waves as torch ops on the card), == the CPU, == the host controller (``cost``
+   within ``FLEET_COST_RTOL``), its records against the JAX package's digest
+   (``GOLDEN_FLEET_SHA256``); ``market_contention``'s contended fleet replay
+   against its digest (``GOLDEN_REPLAY_SHA256``).  Then
+   ``benchmarks/fleet_study.py::full_config`` (200 jobs, 64 types, seeds 0-7,
+   margins 0.54 / 0.56 / 0.60, four policies, HOUR, 21 days: 96 cells): the batch
+   engine on the card == on the CPU on every field, both timed from an empty
+   memo and again warm; the host controller on seeds 0-1 (a cut) == the batch
+   engine (``cost`` within ``FLEET_COST_RTOL``); one more card run profiled
+   (kernels launched and read-backs inside the EET and attempt waves, the
+   device's busy time); ``eet_scores`` timed on a wave of the study's mean
+   shape.  Prints one ``{"fleet": ...}`` line.
+8. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
    its plain PyTorch version on the card at small shapes: causal and
    bidirectional attention, windows (one off the kv tile, one past Sk),
    ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 16}
    (3 divides no tile), head dims 16-256, float32 and bfloat16; scans of
    ragged lengths and widths on random inputs from a seed, the RG-LRU scan
    bit for bit (``torch.equal``) on both of its bodies.
-7. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
+9. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
    published config (every layer, random weights from a seeded
    ``torch.Generator`` on the card): 2 requests of 4096 prompt tokens, prefill,
    then 16 greedy decode steps, through ``repro_torch.models.transformer``,
@@ -66,16 +94,16 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    of the first layer that called it, beside its bound and (attention)
    ``scaled_dot_product_attention``.
    Prints one ``{"serving": ...}`` line per model.
-8. Holds the checkpoint codec kernel against its plain version on the card, bit
+10. Holds the checkpoint codec kernel against its plain version on the card, bit
    for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
    float32, bfloat16 and float16, all-zero blocks, exact .5 ties of a block's
    step, magnitudes across each type's finite range, and a NaN block.
-9. Small training checks on the card: for the smoke configs of the three
+11. Small training checks on the card: for the smoke configs of the three
    models, one ``loss_fn`` value and every parameter's gradient through the
    kernels' autograd Functions against ``impl="plain"`` (bf16: the loss within
    the serving tolerances; float32: the loss and each leaf's gradient); every
    parameter must get a nonzero gradient through the kernels.
-10. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
+12. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
    AdamW with float32 moments, batch 2 x 4096 tokens from ``TokenStream``,
    ``remat=False``, ``q_block = kv_block = 1024``) through
    ``repro_torch.train.steps.make_train_step``: holds the codec kernel against
@@ -83,18 +111,19 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    biggest; one untimed warm-up step (its loss against the same step's loss
    through ``impl="plain"``), then timed steps with their flash-attention
    launches counted; then a split of one step (forward, backward, optimizer).
-11. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
+13. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
    async writes, ``keep=2``, a checkpoint directory removed at exit) on the
    trace of ``tests/train/test_spot_trainer.py``: one preemption, one restore,
    ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
    restored state within half a quantization step per block of the saved
    one.  Prints one ``{"training": ...}`` line.
-12. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+14. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
-   five-scheme study of phase 4 and the six-scheme study of phase 5).
-13. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   five-scheme study of phase 4, the six-scheme study of phase 5 and the
+   contended studies of phase 6).
+15. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -124,6 +153,12 @@ SWEEP_OUTPUTS = ("done", "comp_time", "n_ckpt", "work_lost", "n_kills", "rec_exi
 GOLDEN_SHA256 = "deb6e6b79af47c3985bae6f24aca27db85bee815aee5629ea096f2aabd739cc4"
 #: sha256 of the ACC_FIELDS arrays of the JAX package's batch engine on golden_study() with all six schemes
 GOLDEN_ACC_SHA256 = "2ede5330a9c837554de8d0c40d5849ebd8e75a8bc669070023f7fcf6991aa20a"
+#: the same on capacity_golden_study() (six schemes, capacity 4, demand 3)
+GOLDEN_CAPACITY_SHA256 = "0bbb0c992233231c0fbd7199438c0c57ac71a474ec80669fd240a6e825505721"
+#: fleet_digest of the JAX package's run_fleet_batch records on golden_fleet_scenarios()
+GOLDEN_FLEET_SHA256 = "823cdaf45564086bb424ad051ac3b333742119498fe5b743b2531467ffe75276"
+#: fleet_digest of the records of examples/market_contention.py's fleet replay (JAX package)
+GOLDEN_REPLAY_SHA256 = "1b89293f36751171e882d8db5a9371439e054051be76a6c8c1cfec33f5efce1b"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor float64 and float32
 # rates, dense bf16 tensor-core rate
@@ -492,6 +527,334 @@ def acc_phase(device) -> int:
         "cells": out["cells"], "wall_s": out["wall_s"], "vs_opt": out["vs_opt"], "paper": policy_compare.PAPER_VS_OPT,
     }}), flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Contended markets (capacity studies) and the fleet
+# ---------------------------------------------------------------------------
+
+#: The contended pool of ``examples/market_contention.py``: capacity 4, a block
+#: of 2; and the block of 3, the first depth at which that pool binds for bids
+#: up to 0.60 of on-demand (a block of 2 fits the free depth wherever a bid can
+#: clear, so its results equal the open market's).
+CAPACITY, DEMAND, BINDING_DEMAND = 4, 2, 3
+#: Cost gate of the fleet controller against the batch engine (the controller
+#: folds with the compensated ``sum()``, the batch biller left to right).
+FLEET_COST_RTOL = 1e-12
+#: Seeds of the full-width fleet study the host controller is held on (a cut:
+#: all eight take ~55 s of host time on top of the batch runs).
+CONTROLLER_SEEDS = (0, 1)
+
+
+def capacity_golden_study():
+    """The golden study, all six schemes, in the contended pool with the
+    block that binds."""
+    import dataclasses
+
+    from repro_torch.engine import ALL_SCHEMES
+
+    return dataclasses.replace(golden_study(), schemes=ALL_SCHEMES, capacity=CAPACITY, demand=BINDING_DEMAND)
+
+
+def small_capacity_studies():
+    """Small contended studies: the engine sweep of ``market_contention``
+    (HOUR, demand 1-4), the step-trace edges and the golden grid contended."""
+    import dataclasses
+
+    from repro_torch.launch import market_contention as mc
+    from repro_torch.market import MarketParams
+
+    out = {f"market_contention demand {d}": mc.sweep_scenario(d) for d in range(1, CAPACITY + 1)}
+    out["step_trace_edges capacity 3, demand 2"] = six_schemes(dataclasses.replace(
+        small_studies()["step_trace_edges"], capacity=3, demand=2, market=MarketParams(price_impact=0.1)))
+    out["golden_grid contended"] = capacity_golden_study()
+    return out
+
+
+def capacity_study(demand=DEMAND):
+    """Phase 4's full-width study in the contended pool (default MarketParams)."""
+    import dataclasses
+
+    return dataclasses.replace(full_study(), capacity=CAPACITY, demand=demand)
+
+
+def capacity_phase(device, open_kills: int, open_completed: int) -> dict[str, int]:
+    """Capacity studies on the card; returns the sweep's launches on each
+    full-width contended study (exactly 1 each)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import BID_LIMITED_SCHEMES, TorchEngine, run
+    from repro_torch.kernels.spot_sweep import kernel, ref
+
+    for name, sc in small_capacity_studies().items():
+        bid_limited = dataclasses.replace(sc, schemes=tuple(x for x in sc.schemes if x in BID_LIMITED_SCHEMES))
+        args = sweep_args(bid_limited, device)
+        compare_outputs(kernel.spot_sweep(*args), ref.sweep_plain(*args), name)
+        got = run(sc, device=device)
+        compare_results(got, run(sc, device="cpu"), name, ACC_FIELDS)
+        print(f"small {name}: kernel == plain on {len(SWEEP_OUTPUTS)} outputs, card == CPU on "
+              f"{len(ACC_FIELDS)} fields, cells {sc.n_cells}, kills {int(got.n_kills.sum())}", flush=True)
+    if result_digest(run(capacity_golden_study(), device=device), ACC_FIELDS) != GOLDEN_CAPACITY_SHA256:
+        raise AssertionError("contended golden study: results differ from the JAX package's")
+    print("contended golden study: digest equals the JAX package's results", flush=True)
+
+    exogenous = full_study().materialize()
+    rows, launches = {}, {}
+    for demand in (DEMAND, BINDING_DEMAND):
+        sc = capacity_study(demand)
+        t0 = time.perf_counter()
+        cleared = [sc._clear_cell(cell) for cell in exogenous]  # the clearing, host NumPy
+        clear_s = time.perf_counter() - t0
+        differ = sum(not np.array_equal(c.trace.prices, e.trace.prices) for c, e in zip(cleared, exogenous))
+        del cleared
+
+        reset_launches()
+        res = run(sc)  # the contended main path, on the card
+        torch.cuda.synchronize()
+        counts = read_launches()
+        n = launches[f"demand_{demand}"] = counts.pop("spot_sweep")
+        if n != 1 or any(counts.values()):
+            raise AssertionError(f"contended study: spot_sweep launched {n} times (want 1), the others {counts}")
+        compare_results(res, TorchEngine(device=device, impl="plain").run(sc), f"contended full width, demand {demand}")
+        args = sweep_args(sc, device)
+        compare_outputs(kernel.spot_sweep(*args), ref.sweep_plain(*args), f"contended full width sweep, demand {demand}")
+        del args
+        warm = run(sc)
+        compare_results(warm, res, f"contended full width demand {demand}, second run")
+        kills, completed = int(res.n_kills.sum()), int(res.completed.sum())
+        print(f"contended full width: {res.n_cells} cells, capacity {CAPACITY}, demand {demand}: cleared traces "
+              f"differ from the exogenous ones in {differ} of {len(exogenous)} markets; spot_sweep launches {n}; "
+              f"== plain version on {len(FIELDS)} fields; kills {kills} against {open_kills} uncontended, completed "
+              f"{completed} against {open_completed}", flush=True)
+        t = res.timings
+        rows[f"demand_{demand}"] = {
+            "markets_cleared_differ": differ, "kills": kills, "completed": completed, "spot_sweep_launches": n,
+            "wall_s": res.wall_s, "grid_s": t.grid_s, "sim_s": t.sim_s, "bill_s": t.bill_s, "clear_s": clear_s,
+            "warm": {"wall_s": warm.wall_s, "sim_s": warm.timings.sim_s, "bill_s": warm.timings.bill_s},
+        }
+        del res, warm
+    print(json.dumps({"market": {
+        "cells": full_study().n_cells, "capacity": CAPACITY, "markets": len(exogenous),
+        "kills_uncontended": open_kills, "completed_uncontended": open_completed, **rows,
+    }}), flush=True)
+    return launches
+
+
+def golden_fleet_scenarios():
+    """``tests/fleet/test_batch_parity.py``'s small fleet grid under each scheme."""
+    from repro_torch.core import Scheme
+    from repro_torch.engine import FleetScenario
+
+    return [FleetScenario(n_jobs=12, mean_interarrival_s=1800.0, mean_work_h=3.0, horizon_days=4.0, n_types=8,
+                          seeds=(0, 1), scheme=scheme) for scheme in Scheme]
+
+
+def fleet_full_scenario(seeds=tuple(range(8))):
+    """``benchmarks/fleet_study.py::full_config``: 200 jobs over the whole
+    64-type catalog, seeds 0-7, margins 0.54 / 0.56 / 0.60, the four
+    policies, HOUR, 21 days (96 cells)."""
+    from repro_torch.core import HOUR, SLA
+    from repro_torch.engine import FleetScenario
+
+    return FleetScenario(n_jobs=200, mean_interarrival_s=0.25 * HOUR, mean_work_h=6.0, horizon_days=21.0,
+                         n_types=64, seeds=tuple(seeds), bid_margins=(0.54, 0.56, 0.60), sla=SLA())
+
+
+def fleet_record(r, cost=True) -> tuple:
+    """One AttemptRecord (of either package) as plain values; floats as hex."""
+    vals = (r.job_id, r.replica, r.instance, r.bid, r.launch, r.end, r.termination.value, r.cost, r.work_start,
+            r.initial_saved_ref, r.saved_after_ref, r.killed, r.completed, r.cancelled, r.self_terminated)
+    out = tuple(float(v).hex() if isinstance(v, float) else v for v in vals)
+    return out if cost else out[:7] + out[8:]
+
+
+def fleet_digest(grids) -> str:
+    """sha256 of every record of a sequence of ``{key: FleetResult}`` grids."""
+    h = hashlib.sha256()
+    for results in grids:
+        for key, res in results.items():
+            h.update(repr(tuple(float(k).hex() if isinstance(k, float) else k for k in key)).encode())
+            for r in res.records:
+                h.update(repr(fleet_record(r)).encode())
+    return h.hexdigest()
+
+
+def fleet_equal(got, want, what, cost_rtol=None) -> None:
+    """Two ``{key: FleetResult}`` grids: every record and outcome ``==``;
+    ``cost`` within ``cost_rtol`` relative when given."""
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: cells differ")
+    exact = cost_rtol is None
+
+    def cost_ok(a: float, b: float) -> bool:
+        return a == b if exact else abs(a - b) <= cost_rtol * abs(b)
+
+    for key, w in want.items():
+        g = got[key]
+        if [fleet_record(r, exact) for r in g.records] != [fleet_record(r, exact) for r in w.records]:
+            raise AssertionError(f"{what} {key}: records differ")
+        if not all(cost_ok(a.cost, b.cost) for a, b in zip(g.records, w.records)):
+            raise AssertionError(f"{what} {key}: a record's cost differs")
+        if list(g.outcomes) != list(w.outcomes):
+            raise AssertionError(f"{what} {key}: jobs differ")
+        for j, o in w.outcomes.items():
+            q = g.outcomes[j]
+            if (q.completed, q.completion_time, q.n_kills, q.n_migrations, len(q.attempts)) != (
+                    o.completed, o.completion_time, o.n_kills, o.n_migrations, len(o.attempts)) or not cost_ok(q.cost, o.cost):
+                raise AssertionError(f"{what} {key}: job {j}'s outcome differs")
+
+
+def fleet_timed(sc, device) -> tuple[dict, dict, float]:
+    """One batch-engine run of ``sc`` from an empty memo (the host caches of
+    pdfs, rows and walks built inside it, as a first run builds them), and
+    its ``fleet_batch.*`` counters."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.engine import run_fleet
+    from repro_torch.engine.fleetgrid import fleet_inputs
+    from repro_torch.fleet.batch import _Memo
+
+    inp = fleet_inputs(sc)
+    inp.memo = _Memo(inp.traces_by_seed, inp.hist_by_seed)
+    with obs.Telemetry() as tel:
+        t0 = time.perf_counter()
+        res = run_fleet(sc, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res.results, {k: v for k, v in tel.counters.items() if k.startswith("fleet_batch.")}, wall
+
+
+def fleet_profile(sc, device, wall_s) -> dict:
+    """One more cold batch run under ``torch.profiler``: the device's busy
+    time, and the kernels launched, scalar read-backs (``.any()``,
+    ``int()``) and ``cudaMemcpyAsync`` calls (the waves' inputs up, their
+    results down) inside each kind of wave (``fleet.eet_wave`` /
+    ``fleet.attempt_wave`` ranges) and in all."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fleet_timed(sc, device)
+    busy_us, spans, marks = 0.0, {"fleet.eet_wave": [], "fleet.attempt_wave": []}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_us += e.duration_ns() * 1e-3
+        elif e.name() in spans:
+            spans[e.name()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.name() in ("cudaLaunchKernel", "aten::_local_scalar_dense", "cudaMemcpyAsync"):
+            marks.setdefault(e.name(), []).append(e.start_ns())
+    out = {}
+    for kind, iv in spans.items():
+        iv.sort()
+        starts = [a for a, _ in iv]
+
+        def inside(ts, iv=iv, starts=starts):
+            i = bisect.bisect_right(starts, ts) - 1
+            return i >= 0 and ts < iv[i][1]
+
+        out[kind.split(".")[1]] = {
+            "ranges": len(iv),
+            "kernel_launches": sum(inside(ts) for ts in marks.get("cudaLaunchKernel", [])),
+            "read_backs": sum(inside(ts) for ts in marks.get("aten::_local_scalar_dense", [])),
+            "memcpy_calls": sum(inside(ts) for ts in marks.get("cudaMemcpyAsync", [])),
+        }
+    busy_s = busy_us * 1e-6
+    return {**out, "kernel_launches": len(marks.get("cudaLaunchKernel", [])),
+            "read_backs": len(marks.get("aten::_local_scalar_dense", [])),
+            "memcpy_calls": len(marks.get("cudaMemcpyAsync", [])),
+            "device_busy_s": busy_s if busy_s > 0 else None, "idle_share": 1.0 - busy_s / wall_s if busy_s > 0 else None}
+
+
+def eet_wave_ms(lanes: int, types: int, device) -> dict:
+    """``fleet_step.ops.eet_scores`` on one wave of the study's mean shape:
+    the op on inputs already on the card (CUDA events), and the engine's
+    whole call from host arrays with the read-back (host clock)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fleet_step.ops import eet_scores
+    from repro_torch.kernels.fleet_step.ref import eet_scores_numpy
+
+    rng = np.random.default_rng(0)
+    p = rng.uniform(0, 1, (lanes, types))
+    host = (p, rng.uniform(0, 5e4, (lanes, types)), rng.uniform(60.0, 2e5, (lanes, types)), rng.random((lanes, types)) < 0.9)
+    on = [torch.from_numpy(x).to(device) for x in host]
+    if not np.array_equal(eet_scores(*on).cpu().numpy(), eet_scores_numpy(*host)):
+        raise AssertionError("eet_scores on the card differs from eet_scores_numpy")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eet_scores(*host, device=device).cpu()
+    return {"lanes": lanes, "types": types, "op_ms": time_ms(lambda: eet_scores(*on), reps=20),
+            "call_ms": (time.perf_counter() - t0) * 1e3 / 20}
+
+
+def fleet_phase(device) -> dict:
+    """The fleet on the card: small grids of every scheme against the JAX
+    package's digest, the contended replay, the full-width study card == CPU
+    and against the host controller, timed and profiled."""
+    from repro_torch.engine import run_fleet
+    from repro_torch.engine.fleetgrid import fleet_inputs
+    from repro_torch.launch import market_contention as mc
+
+    grids = [run_fleet(fs, device=device).results for fs in golden_fleet_scenarios()]
+    for fs, res in zip(golden_fleet_scenarios(), grids):
+        fleet_equal(res, run_fleet(fs, device="cpu").results, f"small fleet {fs.scheme.value}: card vs CPU")
+        fleet_equal(res, run_fleet(fs, engine="controller").results, f"small fleet {fs.scheme.value}: vs controller",
+                    FLEET_COST_RTOL)
+    if fleet_digest(grids) != GOLDEN_FLEET_SHA256:
+        raise AssertionError("small fleet grids: records differ from the JAX package's batch engine")
+    print(f"small fleet grids, {len(grids)} schemes: card == CPU, == controller (cost within {FLEET_COST_RTOL:g}), "
+          "digest equals the JAX package's records", flush=True)
+    replay = mc.fleet_replay()
+    if fleet_digest([replay]) != GOLDEN_REPLAY_SHA256:
+        raise AssertionError("market_contention fleet replay: records differ from the JAX package's")
+    print("market_contention fleet replay: digest equals the JAX package's records", flush=True)
+
+    sc = fleet_full_scenario()
+    t0 = time.perf_counter()
+    fleet_inputs(sc)  # catalog slice, traces, histories, workloads (set-up)
+    setup_s = time.perf_counter() - t0
+    card, waves, card_s = fleet_timed(sc, device)
+    cpu, _, cpu_s = fleet_timed(sc, "cpu")
+    fleet_equal(card, cpu, "fleet full width: card vs CPU")
+    t0 = time.perf_counter()
+    warm = run_fleet(sc, device=device).results  # memo filled: no EET waves left
+    warm_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_fleet(sc, device="cpu")
+    warm_cpu_s = time.perf_counter() - t0
+    fleet_equal(warm, card, "fleet full width: warm run")
+    ctl_sc = fleet_full_scenario(CONTROLLER_SEEDS)
+    t0 = time.perf_counter()
+    ctl = run_fleet(ctl_sc, engine="controller").results
+    ctl_s = time.perf_counter() - t0
+    fleet_equal({k: card[k] for k in ctl}, ctl, "fleet full width: batch vs controller", FLEET_COST_RTOL)
+    records = [r for res in card.values() for r in res.records]
+    summary = {
+        "cells": len(card), "jobs": sc.n_jobs, "types": sc.n_types, "records": len(records),
+        "completed": sum(res.n_completed for res in card.values()),
+        "kills": sum(res.n_kills for res in card.values()), "migrations": sum(res.n_migrations for res in card.values()),
+    }
+    print(f"fleet full width: {summary['cells']} cells, {summary['records']} records, card == CPU on every field, "
+          f"== controller on seeds {list(CONTROLLER_SEEDS)} (cost within {FLEET_COST_RTOL:g}); card {card_s:.3f} s, "
+          f"CPU {cpu_s:.3f} s", flush=True)
+    profile = fleet_profile(sc, device, card_s) if device.type == "cuda" else None
+    mean_lanes = max(1, round(waves.get("fleet_batch.eet_lanes", 0) / max(1, waves.get("fleet_batch.eet_waves", 0))))
+    out = {**summary, "setup_s": setup_s,
+           "card": {"wall_s": card_s, "warm_wall_s": warm_card_s},
+           "cpu": {"wall_s": cpu_s, "warm_wall_s": warm_cpu_s},
+           "cpu_over_card": cpu_s / card_s, "waves": waves,
+           "controller": {"seeds": list(CONTROLLER_SEEDS), "cells": len(ctl), "wall_s": ctl_s},
+           "card_profile": profile, "eet_wave": eet_wave_ms(mean_lanes, sc.n_types, device)}
+    print(json.dumps({"fleet": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1550,6 +1913,7 @@ def main() -> int:
             "grid_s": t.grid_s,
         }
     print(json.dumps({"engine": {"cells": res.n_cells, "setup_s": setup_s, **walls}}), flush=True)
+    open_kills, open_completed = int(res.n_kills.sum()), int(res.completed.sum())
     del sc, args, res, res_plain, out, out_plain, job
 
     # -- 5. ACC beside the other five schemes -----------------------------------
@@ -1557,28 +1921,36 @@ def main() -> int:
     sweep_entry["launches_by_path"] = {"five_schemes": sweep_entry["launches"], "six_schemes": six_launches}
     sweep_entry["launches"] += six_launches
 
-    # -- 6. the model kernels vs their plain versions at small shapes --------
+    # -- 6. contended markets: capacity studies through the sweep kernel --------
+    capacity_launches = capacity_phase(device, open_kills, open_completed)
+    sweep_entry["launches_by_path"]["capacity"] = capacity_launches
+    sweep_entry["launches"] += sum(capacity_launches.values())
+
+    # -- 7. the fleet: placement and attempt waves on the card ----------------
+    fleet_phase(device)
+
+    # -- 8. the model kernels vs their plain versions at small shapes --------
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     small_errs = small_kernel_checks(device)
 
-    # -- 7. serving at full width -------------------------------------------
+    # -- 9. serving at full width -------------------------------------------
     found = serve_models(device)
 
-    # -- 8. the codec kernel vs its plain version at small sizes ---------------
+    # -- 10. the codec kernel vs its plain version at small sizes ---------------
     small_codec_checks(device)
 
-    # -- 9. training through the kernels at small sizes -----------------------
+    # -- 11. training through the kernels at small sizes -----------------------
     small_train = small_training_checks(device)
 
-    # -- 10. training at full width --------------------------------------------
+    # -- 12. training at full width --------------------------------------------
     training, codec_measured = train_full_width(device)
 
-    # -- 11. the spot campaign at full width ----------------------------------
+    # -- 13. the spot campaign at full width ----------------------------------
     campaign = spot_campaign(device)
     print(json.dumps({"training": {"card": card, **training, "campaign": campaign, "small": small_train}}), flush=True)
 
-    # -- 12. the kernels line -------------------------------------------------
+    # -- 14. the kernels line -------------------------------------------------
     rows = model_kernel_rows(found, small_errs)
     for row in rows:
         extra = campaign["launches"].get(row["name"], 0) + (
@@ -1589,7 +1961,7 @@ def main() -> int:
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
     print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
-    # -- 13. the result line ------------------------------------------------
+    # -- 15. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -10,6 +10,10 @@
     host; semantically canonical (:mod:`repro_torch.engine.parity`).
   * :func:`run` — the one-call entry point; it runs on the GPU unless
     ``device="cpu"`` is passed, and raises when there is no GPU.
+  * :class:`FleetScenario` / :func:`run_fleet` — fleet studies: the batch
+    engine's waves on the GPU unless ``device="cpu"``, the scalar
+    ``FleetController`` on the host for ``engine="controller"`` and for
+    contended or re-bidding fleets.
 """
 
 from repro_torch.core.schemes import ALL_SCHEMES
@@ -21,6 +25,7 @@ from repro_torch.engine.base import (
     resolve_device,
     run,
 )
+from repro_torch.engine.fleetgrid import FleetGridResult, policy_registry, resolve_policies, run_fleet
 from repro_torch.engine.parity import (
     COMPARED,
     COST_RTOL,
@@ -31,7 +36,13 @@ from repro_torch.engine.parity import (
     compare_results,
 )
 from repro_torch.engine.reference import ReferenceEngine
-from repro_torch.engine.scenario import BATCHED_SCHEMES, BID_LIMITED_SCHEMES, MarketCell, Scenario
+from repro_torch.engine.scenario import (
+    BATCHED_SCHEMES,
+    BID_LIMITED_SCHEMES,
+    FleetScenario,
+    MarketCell,
+    Scenario,
+)
 from repro_torch.engine.torch_backend import TorchEngine
 
 __all__ = [
@@ -43,6 +54,8 @@ __all__ = [
     "CellMismatch",
     "Engine",
     "EngineResult",
+    "FleetGridResult",
+    "FleetScenario",
     "MarketCell",
     "ParityReport",
     "PhaseTimings",
@@ -53,6 +66,9 @@ __all__ = [
     "compare_engines",
     "compare_results",
     "get_engine",
+    "policy_registry",
+    "resolve_policies",
     "resolve_device",
     "run",
+    "run_fleet",
 ]

@@ -6,7 +6,9 @@ here as a pure function over tensors — no engine state, no trace objects, no
 I/O — on whatever device its inputs lie.  They are the plain PyTorch form of
 the fused sweep (:mod:`repro_torch.kernels.spot_sweep.ref` composes them),
 and the CUDA kernel (``kernels/spot_sweep/csrc/spot_sweep.cu``) writes the
-same expressions per thread.
+same expressions per thread.  The per-attempt lockstep walks
+(:func:`_kernel_windows` for HOUR / EDGE, :func:`_kernel_adapt` for ADAPT)
+are what the fleet engine's attempt waves call, one lane per attempt.
 
 Exactness is the design contract: every floating-point expression keeps the
 formula *and* association order of :mod:`repro.engine.kernels` —
@@ -35,8 +37,10 @@ from repro_torch.core.simulator import _EPS
 __all__ = [
     "AdaptTables",
     "_EPS",
+    "_kernel_adapt",
     "_kernel_none",
     "_kernel_opt",
+    "_kernel_windows",
     "_survival_at",
     "acc_lease_tick",
     "adapt_decision",
@@ -173,6 +177,123 @@ def windows_advance(s, window, state, work_s, t_c, b):
     billed_out = window & (t >= b)
     in_loop = in_loop & ~billed_out
     return window, (work, t, sv, done_now, done_at, ckpt_add, in_loop)
+
+
+def _kernel_windows(
+    a,
+    b,
+    start_work,
+    saved,
+    work_s,
+    t_c,
+    hour_delta: float | None = None,
+    edge_state: tuple | None = None,
+):
+    """HOUR / EDGE: walk scheduled checkpoint windows in lockstep.
+
+    The port of :func:`repro.engine.kernels._kernel_windows`.  The loop
+    advances one window index per iteration for every active lane at once; a
+    lane drops out when it completes, is billed out at ``t >= b``, or runs
+    out of windows (tail segment).  Window start times come from hour
+    boundaries (``hour_delta``: ``a + k*Δ - t_c``) or the trace's rising
+    edges (``edge_state = (edges_flat, base, n_edges, ptr)``: per-lane views
+    into one flat edge tensor; ``edges_flat`` must hold at least one entry).
+    ``work_s`` is a float or a per-lane tensor.
+
+    The working set is compacted whenever at most half the rows are still
+    in the loop, and the results are scattered back to full width on the
+    lanes' device at the end — a scheduling change only, so results are
+    bit-identical to the reference.  The loop reads back one ``any()`` and
+    one live count an iteration.
+    """
+    C = b.shape[0]
+    dev = b.device
+    f64 = torch.float64
+    b_full = b
+    work_s_full = work_s  # per-lane work_s must survive compaction (fleet lanes)
+    per_lane = isinstance(work_s, torch.Tensor) and work_s.ndim > 0
+    rows = torch.arange(C, device=dev)  # current -> original row mapping
+    work = saved
+    t = start_work
+    sv = saved
+    done_now = torch.zeros(C, dtype=torch.bool, device=dev)
+    done_at = torch.full((C,), np.nan, dtype=f64, device=dev)
+    ckpt_add = torch.zeros(C, dtype=torch.int64, device=dev)
+    tail = torch.zeros(C, dtype=torch.bool, device=dev)
+    in_loop = torch.ones(C, dtype=torch.bool, device=dev)
+    if edge_state is not None:
+        edges_flat, base, n_edges, ptr = edge_state
+    # full-width result buffers (written back on compaction / exit)
+    out = {
+        "work": torch.zeros(C, dtype=f64, device=dev),
+        "t": torch.zeros(C, dtype=f64, device=dev),
+        "sv": torch.zeros(C, dtype=f64, device=dev),
+        "done_now": torch.zeros(C, dtype=torch.bool, device=dev),
+        "done_at": torch.full((C,), np.nan, dtype=f64, device=dev),
+        "ckpt_add": torch.zeros(C, dtype=torch.int64, device=dev),
+        "tail": torch.zeros(C, dtype=torch.bool, device=dev),
+    }
+
+    def flush():
+        out["work"][rows] = work
+        out["t"][rows] = t
+        out["sv"][rows] = sv
+        out["done_now"][rows] = done_now
+        out["done_at"][rows] = done_at
+        out["ckpt_add"][rows] = ckpt_add
+        out["tail"][rows] = tail
+
+    k = 1
+    while bool(in_loop.any()):
+        if edge_state is None:
+            s = a + k * hour_delta - t_c  # launch + k*Δ - t_c
+            no_more = in_loop & ~(s < b)
+            window = in_loop & (s < b) & (s > start_work)
+            # s <= start_work windows are skipped but the walk continues
+        else:
+            have = in_loop & (ptr < n_edges)
+            idx = torch.where(have, base + ptr, 0)
+            s = torch.where(have, edges_flat[idx], np.inf)
+            no_more = in_loop & (~have | ~(s < b))
+            window = in_loop & have & (s < b)
+        tail = tail | no_more
+        in_loop = in_loop & ~no_more
+
+        state = (work, t, sv, done_now, done_at, ckpt_add, in_loop)
+        window, state = windows_advance(s, window, state, work_s, t_c, b)
+        work, t, sv, done_now, done_at, ckpt_add, in_loop = state
+        if edge_state is not None:
+            ptr = ptr + window.to(ptr.dtype)  # only consumed edges advance
+        k += 1
+
+        live = int(in_loop.sum())
+        if live and live <= rows.shape[0] // 2:
+            flush()
+            keep = torch.nonzero(in_loop).squeeze(1)
+            rows = rows[keep]
+            a, b, start_work = a[keep], b[keep], start_work[keep]
+            work, t, sv = work[keep], t[keep], sv[keep]
+            done_now, done_at, ckpt_add = done_now[keep], done_at[keep], ckpt_add[keep]
+            tail = tail[keep]
+            in_loop = in_loop[keep]
+            if per_lane:
+                work_s = work_s[keep]
+            if edge_state is not None:
+                base, n_edges, ptr = base[keep], n_edges[keep], ptr[keep]
+
+    flush()
+    work, t, sv = out["work"], out["t"], out["sv"]
+    done_now, done_at, ckpt_add, tail = out["done_now"], out["done_at"], out["ckpt_add"], out["tail"]
+    b = b_full
+    work_s = work_s_full
+
+    # tail segment: work to b, maybe completing
+    lhs = work + (b - t)
+    d2 = tail & (lhs >= (work_s - _EPS))
+    done_now = done_now | d2
+    done_at = torch.where(d2, t + (work_s - work), done_at)
+    work_end = torch.where(tail, lhs, work)
+    return done_now, done_at, work_end, sv, ckpt_add
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +490,40 @@ def adapt_tick(state, a, b, work_s, t_c, t_r, interval, flat, off, top, bin_s, n
     done_at = torch.where(fin, d_at, done_at)
     ckpt_add = ckpt_add + ck.to(torch.int64)
     return live, t, work, sv, next_dec, done_now, done_at, ckpt_add
+
+
+def _kernel_adapt(a, b, start_work, saved, work_s, t_c, t_r, interval, tables, cells):
+    """ADAPT: walk the decision cadence in lockstep, hazards from binned
+    tables (the port of :func:`repro.engine.kernels._kernel_adapt`).
+
+    ``tables`` is an :class:`AdaptTables` (its arrays NumPy or tensors);
+    ``cells`` selects each lane's table.  Both are moved to the lanes'
+    device.  Returns the same ``(done_now, done_at, work_end, saved_out,
+    ckpt_add)`` tuple as every other step body.
+    """
+    C = b.shape[0]
+    dev = b.device
+    cells = torch.as_tensor(cells, device=dev)
+    off = torch.as_tensor(tables.off, device=dev)[cells]
+    top = torch.as_tensor(tables.top, device=dev)[cells]
+    flat = torch.as_tensor(tables.flat, device=dev)
+    state = (
+        torch.ones(C, dtype=torch.bool, device=dev),  # in_loop
+        start_work,  # t
+        saved,  # work
+        saved,  # sv
+        start_work + interval,  # next_dec
+        torch.zeros(C, dtype=torch.bool, device=dev),  # done_now
+        torch.full((C,), np.nan, dtype=torch.float64, device=dev),  # done_at
+        torch.zeros(C, dtype=torch.int64, device=dev),  # ckpt_add
+    )
+    while bool(state[0].any()):
+        state = adapt_tick(
+            state, a, b, work_s, t_c, t_r, interval,
+            flat, off, top, tables.bin_s, tables.n_bins,
+        )
+    _, _, work, sv, _, done_now, done_at, ckpt_add = state
+    return done_now, done_at, work, sv, ckpt_add
 
 
 def acc_lease_tick(live, t_h, take_ckpt, term_q, t, work, sv, work_s, t_c):

@@ -9,9 +9,19 @@ return a structure-of-arrays :class:`~repro_torch.engine.base.EngineResult`.
 
 The fields and their meaning are those of :class:`repro.engine.Scenario`,
 so a study moves between the two packages as its :meth:`Scenario.canonical`
-dict (:meth:`Scenario.from_reference`).  Capacity-constrained markets
-(``capacity=`` / ``demand=``) are not part of this package yet and raise
-:class:`NotImplementedError`.
+dict (:meth:`Scenario.from_reference`).
+
+:class:`FleetScenario` is the fleet-study analogue: a declarative
+``(policy × bid-margin × seed)`` grid over a workload stream, consumed by
+:func:`repro_torch.engine.fleetgrid.run_fleet`.
+
+Capacity-constrained markets plug in at materialization (see
+:mod:`repro_torch.market`): ``capacity`` bounds the per-type pool,
+``demand`` is the depth of the co-located foreground block a cell's job is
+the marginal replica of, and each exogenous trace is replaced by its
+auction-cleared view — so the sweep honors preemption-by-outbid through the
+one out-of-bid rule it already implements, bit-identically.
+``capacity=None`` (the default) keeps the infinitely deep market.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from repro_torch.core.market import (
 )
 from repro_torch.core.provision import SLA
 from repro_torch.core.schemes import Scheme, SimParams
+from repro_torch.market import MarketParams, effective_trace
 
 #: The bid-limited schemes (an instance lives until its spot price exceeds
 #: the bid): everything except ACC, whose instances are never provider-killed.
@@ -100,15 +111,17 @@ class Scenario:
     initial_saved_work: float = 0.0
     sla: SLA | None = None  # admission filter applied to ``instances``
     bid_fractions: bool = False
-    # -- capacity-constrained market: not ported, must stay at the defaults
+    # -- capacity-constrained market (None = the infinitely deep pool)
+    #: per-type supply: how many instances of each market cell's type exist
     capacity: int | None = None
+    #: foreground block depth: the cell's job is the marginal replica of
+    #: ``demand`` co-located lockstep units, so it runs only when the whole
+    #: block clears the auction and pays the block's uniform clearing price
     demand: int = 1
+    #: background-occupancy / displacement-ladder calibration
+    market: MarketParams = dataclasses.field(default_factory=MarketParams)
 
     def __post_init__(self):
-        if self.capacity is not None or self.demand != 1:
-            raise NotImplementedError(
-                "capacity-constrained markets (capacity= / demand=) are not ported yet"
-            )
         if self.work_s <= 0:
             raise ValueError(f"work_s must be positive, got {self.work_s}")
         if not self.bids:
@@ -128,6 +141,12 @@ class Scenario:
             )
         if self.bid_fractions and self.instances is None:
             raise ValueError("bid_fractions needs instances= (explicit traces have no on-demand)")
+        if self.capacity is not None and self.capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+        if self.demand < 1:
+            raise ValueError(f"demand must be >= 1, got {self.demand}")
+        if self.demand > 1 and self.capacity is None:
+            raise ValueError("demand > 1 needs capacity= (an infinitely deep market never clears)")
 
     # -- constructors -------------------------------------------------------
 
@@ -140,6 +159,9 @@ class Scenario:
         params: SimParams | None = None,
         label: str = "trace0",
         initial_saved_work: float = 0.0,
+        capacity: int | None = None,
+        demand: int = 1,
+        market: MarketParams | None = None,
     ) -> "Scenario":
         """Single explicit-trace study over every scheme by default (ACC
         included), as :meth:`repro.engine.Scenario.from_trace`."""
@@ -151,6 +173,9 @@ class Scenario:
             traces=(trace,),
             labels=(label,),
             initial_saved_work=initial_saved_work,
+            capacity=capacity,
+            demand=demand,
+            market=market or MarketParams(),
         )
 
     @staticmethod
@@ -164,6 +189,9 @@ class Scenario:
         seeds: Sequence[int] = (0,),
         sla: SLA | None = None,
         bid_fractions: bool = False,
+        capacity: int | None = None,
+        demand: int = 1,
+        market: MarketParams | None = None,
     ) -> "Scenario":
         """The §VII grid: (instance type × bid × seed × scheme) cells over
         generated traces.  ``instances`` defaults to the full 64-type catalog
@@ -185,6 +213,9 @@ class Scenario:
             seeds=tuple(int(s) for s in seeds),
             sla=sla,
             bid_fractions=bid_fractions,
+            capacity=capacity,
+            demand=demand,
+            market=market or MarketParams(),
         )
 
     @staticmethod
@@ -197,14 +228,10 @@ class Scenario:
         A canonical dict holds explicit traces only as content digests, so
         an explicit-trace study needs its ``traces`` as ``(times, prices)``
         array pairs; each pair must match its digest.  A contended market
-        (``capacity`` set) raises :class:`NotImplementedError`.
+        carries its ``capacity``, ``demand`` and ``market`` calibration.
         """
         if canonical.get("kind") != "scenario":
             raise ValueError(f"not a scenario canonical dict: kind={canonical.get('kind')!r}")
-        if canonical["capacity"] is not None or canonical["demand"] != 1:
-            raise NotImplementedError(
-                "capacity-constrained markets (capacity= / demand=) are not ported yet"
-            )
         explicit = None
         if canonical["traces"] is not None:
             if traces is None or len(traces) != len(canonical["traces"]):
@@ -243,6 +270,9 @@ class Scenario:
                 os=sla["os"],
             ),
             bid_fractions=bool(canonical["bid_fractions"]),
+            capacity=None if canonical["capacity"] is None else int(canonical["capacity"]),
+            demand=int(canonical["demand"]),
+            market=MarketParams(**canonical["market"]),
         )
 
     # -- materialization ----------------------------------------------------
@@ -258,16 +288,34 @@ class Scenario:
         """Total (market, bid, scheme) simulation cells."""
         return self.n_markets * len(self.bids) * len(self.schemes)
 
+    def _clear_cell(self, cell: MarketCell) -> MarketCell:
+        """Replace a cell's exogenous trace with its auction-cleared view.
+
+        With ``capacity=None`` the cell passes through untouched (the same
+        trace object); otherwise the cleared trace shares the exogenous
+        segment boundaries and prices every segment at the marginal cost of
+        the ``demand``-th foreground unit, so out-of-bid preemption in the
+        sweep *is* auction preemption.
+        """
+        if self.capacity is None:
+            return cell
+        cleared = effective_trace(
+            cell.trace, self.capacity, self.demand, self.market, on_demand=cell.on_demand
+        )
+        return dataclasses.replace(cell, trace=cleared)
+
     def materialize(self) -> list[MarketCell]:
         """Resolve the market into concrete ``(label, seed, trace)`` cells.
 
         Deterministic in the scenario's fields; generated traces come from one
         batched :func:`sample_traces_batch` call with decorrelated
-        :func:`ensemble_seed` streams.
+        :func:`ensemble_seed` streams.  With ``capacity`` set, every cell's
+        trace is the auction-cleared view (:meth:`_clear_cell`) — the single
+        point where contention enters.
         """
         if self.traces is not None:
             labels = self.labels or tuple(f"trace{i}" for i in range(len(self.traces)))
-            return [MarketCell(lbl, 0, tr) for lbl, tr in zip(labels, self.traces)]
+            return [self._clear_cell(MarketCell(lbl, 0, tr)) for lbl, tr in zip(labels, self.traces)]
         models, streams = [], []
         for it in self.instances:
             m = TraceModel.for_instance(it)
@@ -279,7 +327,7 @@ class Scenario:
         k = 0
         for it in self.instances:
             for s in self.seeds:
-                cells.append(MarketCell(it.name, s, traces[k], it.on_demand))
+                cells.append(self._clear_cell(MarketCell(it.name, s, traces[k], it.on_demand)))
                 k += 1
         return cells
 
@@ -293,13 +341,13 @@ class Scenario:
         """
         if self.traces is not None:
             labels = self.labels or tuple(f"trace{i}" for i in range(len(self.traces)))
-            return MarketCell(labels[market], 0, self.traces[market])
+            return self._clear_cell(MarketCell(labels[market], 0, self.traces[market]))
         it = self.instances[market // len(self.seeds)]
         seed = self.seeds[market % len(self.seeds)]
         trace = sample_traces_batch(
             [TraceModel.for_instance(it)], self.horizon_days * 24 * HOUR, [ensemble_seed(it, seed)]
         )[0]
-        return MarketCell(it.name, seed, trace, it.on_demand)
+        return self._clear_cell(MarketCell(it.name, seed, trace, it.on_demand))
 
     def market_bids(self, market: MarketCell) -> tuple[float, ...]:
         """Absolute $/h bids for one market cell (scaled when
@@ -312,10 +360,10 @@ class Scenario:
     def canonical(self) -> dict:
         """Stable plain-dict form of every engine-visible field.
 
-        The same form as :meth:`repro.engine.Scenario.canonical` without its
-        ``market`` entry (the calibration of contended markets, which this
-        package does not model).  Explicit traces enter as content digests;
-        every numeric field is normalized to ``float``/``int``.
+        The same form as :meth:`repro.engine.Scenario.canonical`: two
+        scenarios are equal as simulations iff their canonical dicts are
+        equal.  Explicit traces enter as content digests; every numeric field
+        is normalized to ``float``/``int``.
         """
         return {
             "kind": "scenario",
@@ -351,6 +399,109 @@ class Scenario:
                 "os": self.sla.os,
             },
             "bid_fractions": bool(self.bid_fractions),
-            "capacity": None,
-            "demand": 1,
+            "capacity": None if self.capacity is None else int(self.capacity),
+            "demand": int(self.demand),
+            "market": _canonical_market_params(self.market),
+        }
+
+
+def _canonical_market_params(params: MarketParams) -> dict:
+    d = dataclasses.asdict(params)
+    return {k: (None if v is None else float(v)) for k, v in d.items()}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FleetScenario:
+    """Declarative fleet study: (policy × bid-margin × seed) over a job stream.
+
+    The fields and their meaning are those of
+    :class:`repro.engine.FleetScenario`.  ``policies`` names placement
+    policies from :func:`repro_torch.engine.fleetgrid.policy_registry`; pass
+    policy *objects* directly to :func:`repro_torch.engine.fleetgrid.run_fleet`
+    to override.
+    """
+
+    n_jobs: int = 50
+    mean_interarrival_s: float = 0.5 * HOUR
+    mean_work_h: float = 4.0
+    horizon_days: float = 10.0
+    n_types: int = 16
+    seeds: tuple[int, ...] = (0, 1, 2, 3)
+    bid_margins: tuple[float, ...] = (0.56,)
+    scheme: Scheme = Scheme.HOUR
+    sla: SLA = dataclasses.field(default_factory=lambda: SLA(min_compute_units=4.0, os="linux"))
+    n_replicas: int = 2
+    deadline_slack: float | None = 4.0
+    policies: tuple[str, ...] = ("algorithm1", "cost_greedy", "eet_greedy", "diversified")
+    # -- capacity-constrained market (None = the infinitely deep pools)
+    #: per-type supply; with it set the controller registers every placement
+    #: as demand, so large fleets move prices against themselves and each
+    #: other, and rising clearing prices preempt outbid replicas
+    capacity: int | None = None
+    #: background/displacement calibration shared by every type's pool
+    market: MarketParams = dataclasses.field(default_factory=MarketParams)
+    #: online bid policy: ``"fixed"`` = ``bid_margin × on-demand``;
+    #: ``"rebid"`` re-bids from the currently cleared spot quote on every
+    #: (re-)placement (see :class:`repro_torch.fleet.policies.ClearingRebid`)
+    bid_policy: str = "fixed"
+    #: markup over the cleared quote used by ``bid_policy="rebid"``
+    rebid_markup: float = 0.10
+
+    def __post_init__(self):
+        if self.n_jobs <= 0 or self.n_types <= 0:
+            raise ValueError("n_jobs and n_types must be positive")
+        if not self.seeds or not self.bid_margins or not self.policies:
+            raise ValueError("seeds, bid_margins and policies must be non-empty")
+        if self.capacity is not None and self.capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+        if self.bid_policy not in ("fixed", "rebid"):
+            raise ValueError(f"unknown bid_policy {self.bid_policy!r}; expected fixed|rebid")
+
+    @staticmethod
+    def from_sweep_config(cfg, policies: Sequence[str] | None = None) -> "FleetScenario":
+        """Lift a :class:`~repro_torch.fleet.sweep.SweepConfig` into the
+        declarative surface."""
+        kwargs = {}
+        if policies is not None:
+            kwargs["policies"] = tuple(policies)
+        return FleetScenario(
+            n_jobs=cfg.n_jobs,
+            mean_interarrival_s=cfg.mean_interarrival_s,
+            mean_work_h=cfg.mean_work_h,
+            horizon_days=cfg.horizon_days,
+            n_types=cfg.n_types,
+            seeds=tuple(cfg.seeds),
+            bid_margins=tuple(cfg.bid_margins),
+            scheme=cfg.scheme,
+            sla=cfg.sla,
+            n_replicas=cfg.n_replicas,
+            deadline_slack=cfg.deadline_slack,
+            **kwargs,
+        )
+
+    def canonical(self) -> dict:
+        """Stable plain-dict form for content hashing, the same form as
+        :meth:`repro.engine.FleetScenario.canonical`."""
+        return {
+            "kind": "fleet",
+            "n_jobs": int(self.n_jobs),
+            "mean_interarrival_s": float(self.mean_interarrival_s),
+            "mean_work_h": float(self.mean_work_h),
+            "horizon_days": float(self.horizon_days),
+            "n_types": int(self.n_types),
+            "seeds": [int(s) for s in self.seeds],
+            "bid_margins": [float(m) for m in self.bid_margins],
+            "scheme": self.scheme.value,
+            "sla": {
+                "min_compute_units": float(self.sla.min_compute_units),
+                "regions": [str(r) for r in self.sla.regions],
+                "os": self.sla.os,
+            },
+            "n_replicas": int(self.n_replicas),
+            "deadline_slack": None if self.deadline_slack is None else float(self.deadline_slack),
+            "policies": [str(p) for p in self.policies],
+            "capacity": None if self.capacity is None else int(self.capacity),
+            "market": _canonical_market_params(self.market),
+            "bid_policy": str(self.bid_policy),
+            "rebid_markup": float(self.rebid_markup),
         }

@@ -215,3 +215,90 @@ def test_acc_phase_runs_every_study_with_all_six_schemes(smoke):
     assert full.n_cells == 62976 and full.n_markets * len(full.bids) == 10496
     assert smoke.full_study().schemes == smoke.full_study(None).schemes != ALL_SCHEMES
     assert set(smoke.ACC_FIELDS) == set(smoke.FIELDS) | {"n_self_terminations"}
+
+
+def ref_scenario(sc):
+    """The JAX package's study of a port study over a generated market."""
+    from repro.core import catalog as ref_catalog
+    from repro.engine import Scenario as RefScenario
+    from repro.market import MarketParams as RefMarketParams
+
+    canon = sc.canonical()
+    by_name = {it.name: it for it in ref_catalog()}
+    from repro.core import Scheme as RefScheme
+
+    rsc = RefScenario.grid(
+        work_s=canon["work_s"], bids=canon["bids"], instances=[by_name[it["name"]] for it in canon["instances"]],
+        schemes=tuple(RefScheme(v) for v in canon["schemes"]), horizon_days=canon["horizon_days"],
+        seeds=canon["seeds"], bid_fractions=canon["bid_fractions"], capacity=canon["capacity"],
+        demand=canon["demand"], market=RefMarketParams(**canon["market"]),
+    )
+    assert rsc.canonical() == canon
+    return rsc
+
+
+def test_capacity_golden_digest_is_the_reference_result(smoke):
+    """``chip_smoke.py`` holds the card's contended golden study against a
+    pinned digest: the digest of ``repro``'s batch engine on the same study."""
+    from repro.engine import run as ref_run
+
+    from repro_torch.engine import ALL_SCHEMES, run
+
+    sc = smoke.capacity_golden_study()
+    assert sc.schemes == ALL_SCHEMES and (sc.capacity, sc.demand) == (smoke.CAPACITY, smoke.BINDING_DEMAND) == (4, 3)
+    assert smoke.result_digest(ref_run(ref_scenario(sc), "batch"), smoke.ACC_FIELDS) == smoke.GOLDEN_CAPACITY_SHA256
+    assert smoke.result_digest(run(sc, device="cpu"), smoke.ACC_FIELDS) == smoke.GOLDEN_CAPACITY_SHA256
+
+
+def test_fleet_golden_digests_are_the_reference_records(smoke):
+    """The small fleet grids (every scheme) and the contended fleet replay:
+    the pinned digests are those of ``repro``'s records, and the port's CPU
+    run gives them too."""
+    from repro.core import Scheme as RefScheme
+    from repro.core import constant_trace as ref_constant_trace
+    from repro.core import get_instance as ref_get_instance
+    from repro.engine import FleetScenario as RefFleetScenario
+    from repro.engine import run_fleet as ref_run_fleet
+    from repro import fleet as RF
+
+    from repro_torch.core import HOUR, Scheme
+    from repro_torch.engine import run_fleet
+
+    scenarios = smoke.golden_fleet_scenarios()
+    assert [fs.scheme for fs in scenarios] == list(Scheme)
+    want = []
+    for fs in scenarios:
+        canon = fs.canonical()
+        rfs = RefFleetScenario(n_jobs=12, mean_interarrival_s=1800.0, mean_work_h=3.0, horizon_days=4.0, n_types=8,
+                               seeds=(0, 1), scheme=RefScheme(canon["scheme"]))
+        assert rfs.canonical() == canon
+        want.append(ref_run_fleet(rfs, engine="batch").results)
+    assert smoke.fleet_digest(want) == smoke.GOLDEN_FLEET_SHA256
+    assert smoke.fleet_digest([run_fleet(fs, device="cpu").results for fs in scenarios]) == smoke.GOLDEN_FLEET_SHA256
+
+    it = ref_get_instance("m1.xlarge", region="us-east-1")
+    traces = {it.name: ref_constant_trace(0.36, 60 * HOUR)}
+    wl = RF.Workload.from_sizes([6.0] * 4, interarrival_s=0.5 * HOUR)
+    replay = {}
+    for label, kwargs in (("infinite depth", {}), ("capacity-limited", {"capacity": 4}),
+                          ("capacity + re-bid", {"capacity": 4, "bid_policy": RF.ClearingRebid(0.56, 0.10)})):
+        replay[label] = RF.FleetController([it], traces, RF.CostGreedyPolicy(), scheme=RefScheme.HOUR,
+                                           bid_margin=0.56, **kwargs).run(wl)
+    assert smoke.fleet_digest([replay]) == smoke.GOLDEN_REPLAY_SHA256
+
+
+def test_fleet_and_capacity_studies_are_the_stated_configurations(smoke):
+    fs = smoke.fleet_full_scenario()
+    assert (fs.n_jobs, fs.n_types, fs.seeds, fs.bid_margins, fs.horizon_days) == (
+        200, 64, tuple(range(8)), (0.54, 0.56, 0.60), 21.0)
+    assert fs.scheme.value == "hour" and len(fs.policies) * len(fs.seeds) * len(fs.bid_margins) == 96
+    assert smoke.fleet_full_scenario(smoke.CONTROLLER_SEEDS).seeds == (0, 1)
+    cap = smoke.capacity_study()
+    assert cap.n_cells == 52480 and cap.capacity == 4 and cap.demand == 2
+    assert smoke.capacity_study(smoke.BINDING_DEMAND).demand == 3
+    assert cap.market == type(cap.market)()
+    assert {k: v for k, v in cap.canonical().items() if k not in ("capacity", "demand")} == {
+        k: v for k, v in smoke.full_study().canonical().items() if k not in ("capacity", "demand")}
+    small = smoke.small_capacity_studies()
+    assert {sc.demand for name, sc in small.items() if name.startswith("market_contention")} == {1, 2, 3, 4}
+    assert all(sc.capacity is not None for sc in small.values())

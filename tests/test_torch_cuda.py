@@ -135,6 +135,40 @@ def test_six_schemes_on_card_equal_the_cpu(cuda, name):
         np.testing.assert_array_equal(getattr(alone, field)[:, :, 0], getattr(on_cpu, field)[:, :, a], err_msg=field)
 
 
+@pytest.mark.parametrize("name", ["synthetic", "step_trace", "grid"])
+def test_contended_studies_on_card_equal_the_cpu(cuda, name):
+    """A contended market clears each trace on the host and runs the same
+    sweep: one kernel launch, every field equal to the CPU engine's."""
+    sc = dataclasses.replace(scenarios()[name], schemes=ALL_SCHEMES, capacity=3, demand=2)
+    before = kernel.launches
+    on_card = TorchEngine(device=cuda).run(sc)
+    assert kernel.launches == before + 1
+    on_cpu = TorchEngine(device="cpu").run(sc)
+    for field in COMPARED:
+        np.testing.assert_array_equal(getattr(on_card, field), getattr(on_cpu, field), err_msg=field)
+
+
+@pytest.mark.parametrize("scheme", list(Scheme))
+def test_fleet_batch_engine_on_card_equals_the_cpu(cuda, scheme):
+    """The fleet's EET and attempt waves as torch ops on the card: every
+    record equal to the same waves on the CPU."""
+    from repro_torch.engine import FleetScenario, run_fleet
+    from repro_torch.fleet.batch import _Memo
+    from repro_torch.engine.fleetgrid import fleet_inputs
+
+    fs = FleetScenario(n_jobs=12, mean_interarrival_s=1800.0, mean_work_h=3.0, horizon_days=4.0, n_types=8,
+                       seeds=(0, 1), scheme=scheme)
+    inp = fleet_inputs(fs)
+    inp.memo = _Memo(inp.traces_by_seed, inp.hist_by_seed)
+    with obs.Telemetry() as tel:
+        on_card = run_fleet(fs, device=cuda).results
+    assert tel.counter("fleet_batch.attempt_waves") > 0
+    on_cpu = run_fleet(fs, device="cpu").results
+    assert list(on_card) == list(on_cpu)
+    for key, res in on_cpu.items():
+        assert on_card[key].records == res.records
+
+
 def test_wrapper_rejects_bad_inputs(cuda):
     sc = scenarios()["step_trace"]
     grid, tables = grid_and_tables(sc, sc.materialize(), True)

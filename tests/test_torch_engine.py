@@ -80,7 +80,7 @@ def test_generated_traces_equal_reference_traces(study):
 
 def test_canonical_round_trip(study):
     rsc, sc, _ = study
-    want = {k: v for k, v in rsc.canonical().items() if k != "market"}
+    want = rsc.canonical()
     assert sc.canonical() == want
     assert Scenario.from_reference(sc.canonical()).canonical() == want
 
@@ -98,17 +98,83 @@ def test_explicit_traces_carry_over_and_are_checked():
 
 
 def test_acc_and_contended_markets_raise():
-    """Contended markets are not ported yet and raise; ACC runs now (its
-    checks are in ``tests/test_torch_acc.py``), so only the contended half of
-    this test is left."""
+    """Contended markets run now (their checks follow); what still raises is
+    a contended study the JAX package refuses too: a pool of no capacity, a
+    block deeper than 1 in an infinitely deep market, a negative demand."""
     tr = synthetic_trace(get_instance("m1.xlarge"), 3, seed=5)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        Scenario(work_s=5 * HOUR, bids=(0.40,), traces=(tr,), capacity=8)
+    for kw in ({"capacity": 0}, {"demand": 2}, {"capacity": 4, "demand": 0}):
+        with pytest.raises(ValueError):
+            Scenario(work_s=5 * HOUR, bids=(0.40,), traces=(tr,), **kw)
+        with pytest.raises(ValueError):
+            RefScenario(work_s=5 * HOUR, bids=(0.40,), traces=(ref_trace(tr),), **kw)
+    sc = Scenario(work_s=5 * HOUR, bids=(0.40,), traces=(tr,), capacity=8)
+    assert sc.materialize()[0].trace is not tr
+    assert Scenario(work_s=5 * HOUR, bids=(0.40,), traces=(tr,)).materialize()[0].trace is tr
+
+
+def ref_trace(tr):
+    from repro.core import PriceTrace as RefPriceTrace
+
+    return RefPriceTrace(times=tr.times.copy(), prices=tr.prices.copy())
+
+
+def assert_contended_equal(rsc, sc):
+    """The port's contended study == ``repro``'s batch engine on every field,
+    ``cost`` included, and its cleared traces are the reference's."""
+    assert sc.canonical() == rsc.canonical()
+    for g, w in zip(sc.materialize(), rsc.materialize()):
+        np.testing.assert_array_equal(g.trace.prices, w.trace.prices)
+        np.testing.assert_array_equal(g.trace.times, w.trace.times)
+    got, want = run(sc, device="cpu"), ref_run(rsc, "batch")
+    for field in FIELDS:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+    return got
+
+
+@pytest.mark.parametrize("demand", [1, 2, 3, 4])
+def test_contended_engine_sweep_of_market_contention(demand):
+    """``examples/market_contention.py``'s engine sweep (HOUR, bid $0.385,
+    capacity 4, demand 1-4) through ``launch/market_contention.py``'s study."""
+    from repro.core import Scheme as RefScheme
+    from repro.core import get_instance as ref_get_instance
+    from repro.core import synthetic_trace as ref_synthetic_trace
+    from repro.market import MarketParams as RefMarketParams
+
+    from repro_torch.launch import market_contention as mc
+
+    it = ref_get_instance("m1.xlarge", region="us-east-1")
+    tr = ref_synthetic_trace(it, 20, seed=3)
+    rsc = RefScenario.from_trace(tr, 24 * 3600.0, [0.385], schemes=(RefScheme.HOUR,), capacity=4, demand=demand,
+                                 market=RefMarketParams(ref_price=it.on_demand))
+    sc = mc.sweep_scenario(demand)
+    got = assert_contended_equal(rsc, sc)
+    back = Scenario.from_reference(rsc.canonical(), [(tr.times, tr.prices)])
+    assert back.canonical() == rsc.canonical()
+    np.testing.assert_array_equal(run(back, device="cpu").cost, got.cost)
+
+
+@pytest.mark.parametrize("demand", [1, 2])
+@pytest.mark.parametrize("market", [{}, {"price_impact": 0.12, "util_base": 0.4, "ref_price": 0.3}])
+def test_contended_generated_grid_all_schemes(demand, market):
+    """A generated grid — 4 types × 5 bid fractions × 2 seeds, all six
+    schemes, capacity 3 — carried over from ``repro`` by ``from_reference``
+    on its contended canonical dict."""
+    from repro.core import Scheme as RefScheme
+    from repro.market import MarketParams as RefMarketParams
+
     rsc = RefScenario.grid(
-        work_s=5 * HOUR, bids=[0.5], instances=ref_catalog()[:1], horizon_days=3.0, capacity=8
+        work_s=20 * HOUR, bids=[0.50, 0.525, 0.55, 0.575, 0.60],
+        instances=[it for it in ref_catalog() if it.os == "linux"][2:40:10], schemes=tuple(RefScheme),
+        horizon_days=6.0, seeds=(0, 1), bid_fractions=True, capacity=3, demand=demand,
+        market=RefMarketParams(**market),
     )
-    with pytest.raises(NotImplementedError, match="capacity"):
-        Scenario.from_reference(rsc.canonical())
+    sc = Scenario.from_reference(rsc.canonical())
+    assert sc.capacity == 3 and sc.demand == demand and sc.market.price_impact == rsc.market.price_impact
+    got = assert_contended_equal(rsc, sc)
+    assert got.completed.any() and not got.completed.all()
+    if demand > 1:  # a block past the free depth changes the result against the open market
+        open_ = run(dataclasses.replace(sc, capacity=None, demand=1), device="cpu")
+        assert not np.array_equal(open_.cost, got.cost)
 
 
 def test_no_gpu_raises_instead_of_running_on_cpu(monkeypatch):
@@ -177,6 +243,6 @@ def test_smoke_golden_digest_is_the_reference_result():
         instances=[by_name[it["name"]] for it in canon["instances"]],
         horizon_days=canon["horizon_days"], seeds=canon["seeds"], bid_fractions=canon["bid_fractions"],
     )
-    assert {k: v for k, v in rsc.canonical().items() if k != "market"} == canon
+    assert rsc.canonical() == canon
     assert smoke.result_digest(ref_run(rsc, "batch")) == smoke.GOLDEN_SHA256
     assert smoke.result_digest(run(Scenario.from_reference(canon), device="cpu")) == smoke.GOLDEN_SHA256

@@ -85,6 +85,20 @@ def test_every_module_is_found():
         "repro_torch.engine.parity",
         "repro_torch.engine.reference",
         "repro_torch.launch.policy_compare",
+        "repro_torch.market",
+        "repro_torch.market.auction",
+        "repro_torch.market.background",
+        "repro_torch.market.spot_market",
+        "repro_torch.fleet",
+        "repro_torch.fleet.batch",
+        "repro_torch.fleet.controller",
+        "repro_torch.fleet.policies",
+        "repro_torch.fleet.sweep",
+        "repro_torch.fleet.workload",
+        "repro_torch.engine.fleetgrid",
+        "repro_torch.kernels.fleet_step.ops",
+        "repro_torch.kernels.fleet_step.ref",
+        "repro_torch.launch.market_contention",
     ):
         assert required in names
 
