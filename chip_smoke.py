@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets and the fleet, serve and train.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve and train.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -74,14 +74,33 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    (kernels launched and read-backs inside the EET and attempt waves, the
    device's busy time); ``eet_scores`` timed on a wave of the study's mean
    shape.  Prints one ``{"fleet": ...}`` line.
-8. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
+8. Serving under spot auto-scaling on the card (``repro_torch.serving``; no
+   kernel: the batch engine's per-period waves are torch ops on the card):
+   small grids (``tests/serving/test_engine.py``'s QUICK uncontended and in a
+   pool of 12, ``examples/spot_serving.py``'s day in a pool of 12; flash crowds,
+   all three policies) with the card's batch engine == the CPU's == the host
+   reference on every field, and against the digest of the JAX package's batch
+   engine (``GOLDEN_AUTOSCALE_SHA256``); the zero-traffic grid's ``spot_price``
+   == the exogenous trace on the card; ``benchmarks/serving_bench.py``'s full
+   grid (72 cells, 1152 periods) and the same at seeds 0-63 (576 cells),
+   contended (pool of 12) and uncontended, each on the card (after a warm-up
+   run) and on the CPU, card == CPU on every field; the quick grid's host
+   reference against the card's batch engine; a profile of the contended full
+   grid on the card (kernels, read-backs and copies inside the period loop —
+   it fails on any read-back there — and the device's busy share).  Prints one
+   ``{"autoscale": ...}`` line.
+9. The suite control plane: ``examples/suites/serving_diurnal.toml`` through
+   ``repro_torch.suite.run_suite`` into a temporary store on the card, twice;
+   the second pass must be all cache hits with no ``serving.run`` span, and a
+   deep ``verify`` clean.  Prints one ``{"suite": ...}`` line.
+10. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
    its plain PyTorch version on the card at small shapes: causal and
    bidirectional attention, windows (one off the kv tile, one past Sk),
    ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 16}
    (3 divides no tile), head dims 16-256, float32 and bfloat16; scans of
    ragged lengths and widths on random inputs from a seed, the RG-LRU scan
    bit for bit (``torch.equal``) on both of its bodies.
-9. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
+11. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
    published config (every layer, random weights from a seeded
    ``torch.Generator`` on the card): 2 requests of 4096 prompt tokens, prefill,
    then 16 greedy decode steps, through ``repro_torch.models.transformer``,
@@ -94,16 +113,16 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    of the first layer that called it, beside its bound and (attention)
    ``scaled_dot_product_attention``.
    Prints one ``{"serving": ...}`` line per model.
-10. Holds the checkpoint codec kernel against its plain version on the card, bit
+12. Holds the checkpoint codec kernel against its plain version on the card, bit
    for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
    float32, bfloat16 and float16, all-zero blocks, exact .5 ties of a block's
    step, magnitudes across each type's finite range, and a NaN block.
-11. Small training checks on the card: for the smoke configs of the three
+13. Small training checks on the card: for the smoke configs of the three
    models, one ``loss_fn`` value and every parameter's gradient through the
    kernels' autograd Functions against ``impl="plain"`` (bf16: the loss within
    the serving tolerances; float32: the loss and each leaf's gradient); every
    parameter must get a nonzero gradient through the kernels.
-12. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
+14. Trains glm4-9b at its published widths with 4 of its 40 layers (bf16,
    AdamW with float32 moments, batch 2 x 4096 tokens from ``TokenStream``,
    ``remat=False``, ``q_block = kv_block = 1024``) through
    ``repro_torch.train.steps.make_train_step``: holds the codec kernel against
@@ -111,19 +130,19 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    biggest; one untimed warm-up step (its loss against the same step's loss
    through ``impl="plain"``), then timed steps with their flash-attention
    launches counted; then a split of one step (forward, backward, optimizer).
-13. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
+15. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
    async writes, ``keep=2``, a checkpoint directory removed at exit) on the
    trace of ``tests/train/test_spot_trainer.py``: one preemption, one restore,
    ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
    restored state within half a quantization step per block of the saved
    one.  Prints one ``{"training": ...}`` line.
-14. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+16. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
    five-scheme study of phase 4, the six-scheme study of phase 5 and the
    contended studies of phase 6).
-15. Prints ``{"ok": true, "device": {...}}`` as the last line.
+17. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -745,7 +764,8 @@ def fleet_profile(sc, device, wall_s) -> dict:
     busy_us, spans, marks = 0.0, {"fleet.eet_wave": [], "fleet.attempt_wave": []}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            busy_us += e.duration_ns() * 1e-3
+            if e.name() not in spans:  # a range's annotation on the device's timeline is no work
+                busy_us += e.duration_ns() * 1e-3
         elif e.name() in spans:
             spans[e.name()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
         elif e.name() in ("cudaLaunchKernel", "aten::_local_scalar_dense", "cudaMemcpyAsync"):
@@ -854,6 +874,264 @@ def fleet_phase(device) -> dict:
            "controller": {"seeds": list(CONTROLLER_SEEDS), "cells": len(ctl), "wall_s": ctl_s},
            "card_profile": profile, "eet_wave": eet_wave_ms(mean_lanes, sc.n_types, device)}
     print(json.dumps({"fleet": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Serving under spot auto-scaling, and the suite control plane
+# ---------------------------------------------------------------------------
+
+#: ``tests/serving/test_engine.py``'s QUICK grid (6 hours, 2 seeds, 2 margins,
+#: ``max_spot`` 8; a flash crowd; all three policies)
+AUTOSCALE_QUICK = dict(base_rps=1200.0, flash_crowds=1, horizon_days=0.25, seeds=(0, 1), bid_margins=(0.5, 1.1),
+                       max_spot=8)
+#: The array fields of ``ServingResult``, in its order.
+SERVING_FIELDS = ("availability", "p99_latency_s", "slo_violation_s", "cost", "served_requests", "offered_requests",
+                  "cost_per_mreq", "n_preempted", "n_scale_out", "n_scale_in", "n_boot_lost", "capacity_rps",
+                  "spot_price", "rates")
+#: serving_digest of the JAX package's batch engine on autoscale_small_grids()
+GOLDEN_AUTOSCALE_SHA256 = "b24dcb2bb531e7d3fa04684c3acab5ba39aed9b7134377b4847c7987a5357ea4"
+#: Seeds of the wide serving grid (``serving_bench.py``'s full grid at 8× its seeds: 576 cells).
+WIDE_SEEDS = tuple(range(64))
+
+
+def autoscale_small_grids():
+    """Small serving grids: QUICK uncontended and in a pool of 12, and
+    ``examples/spot_serving.py``'s day in a pool of 12."""
+    from repro_torch.serving import ServingScenario
+
+    return {
+        "quick_uncontended": ServingScenario(**AUTOSCALE_QUICK),
+        "quick_capacity_12": ServingScenario(**AUTOSCALE_QUICK, capacity=12),
+        "example_capacity_12": ServingScenario(base_rps=1500.0, flash_crowds=1, horizon_days=1.0, seeds=(0, 1),
+                                               bid_margins=(0.5, 1.1), capacity=12, max_spot=16),
+    }
+
+
+def autoscale_bench_scenario(quick=False, capacity=12, seeds=None):
+    """``benchmarks/serving_bench.py::bench_scenario``: the full grid is 3
+    policies × 3 margins × 8 seeds (72 cells), 4 days of 300 s periods
+    (1152), a pool of 12, ``max_spot`` 16, two flash crowds; the quick grid 2
+    days, 4 seeds, one flash crowd.  ``capacity=None`` is the uncontended
+    market; ``seeds`` widens the grid."""
+    from repro_torch.serving import ServingScenario
+
+    if quick:
+        return ServingScenario(base_rps=1500.0, flash_crowds=1, horizon_days=2.0, seeds=(0, 1, 2, 3),
+                               bid_margins=(0.5, 0.7, 1.1), capacity=capacity, max_spot=16)
+    return ServingScenario(base_rps=1500.0, flash_crowds=2, horizon_days=4.0,
+                           seeds=tuple(range(8)) if seeds is None else tuple(seeds),
+                           bid_margins=(0.5, 0.7, 1.1), capacity=capacity, max_spot=16)
+
+
+def serving_digest(results) -> str:
+    """sha256 of every array field (dtype, shape, bytes) of a sequence of
+    ``ServingResult`` (of either package)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for res in results:
+        h.update(repr((res.policies, res.bid_margins, res.seeds, res.spot_types)).encode())
+        for name in SERVING_FIELDS:
+            a = np.ascontiguousarray(getattr(res, name))
+            h.update(f"{name}|{a.dtype.str}|{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def serving_equal(got, want, what) -> None:
+    """Every field of two ``ServingResult`` but the engine and wall ``==``
+    (NaN == NaN)."""
+    import numpy as np
+
+    if (got.policies, got.bid_margins, got.seeds, got.spot_types) != (
+            want.policies, want.bid_margins, want.seeds, want.spot_types):
+        raise AssertionError(f"{what}: grid axes differ")
+    for name in SERVING_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def serving_timed(sc, device, engine="batch"):
+    """One run of ``sc`` (its host inputs already built), and its wall."""
+    from repro_torch.serving import run_serving
+
+    t0 = time.perf_counter()
+    res = run_serving(sc, engine=engine, device=device)  # the results come home inside: no sync needed
+    return res, time.perf_counter() - t0
+
+
+def exogenous_prices(sc):
+    """(T, S, P) period-start prices from the market plane alone."""
+    import numpy as np
+
+    from repro_torch.core.market import TraceModel, ensemble_seed, sample_traces_batch
+
+    models, streams = [], []
+    for it in sc.spot_types:
+        for s in sc.seeds:
+            models.append(TraceModel.for_instance(it))
+            streams.append(ensemble_seed(it, s))
+    traces = sample_traces_batch(models, sc.horizon_s, streams)
+    starts = np.arange(sc.n_periods, dtype=np.float64) * sc.control_period_s
+    S = len(sc.seeds)
+    base = np.empty((len(sc.spot_types), S, sc.n_periods))
+    for i, tr in enumerate(traces):
+        idx = np.clip(np.searchsorted(tr.times, starts, side="right") - 1, 0, len(tr.prices) - 1)
+        base[i // S, i % S] = tr.prices[idx]
+    return base
+
+
+def serving_profile(sc, device, wall_s) -> dict:
+    """One more card run of ``sc`` under ``torch.profiler``: the device's
+    busy time (its kernels and copies; the range's own annotation on the
+    device's timeline excluded) against ``wall_s``, an unprofiled run's wall,
+    and the kernels launched, scalar read-backs, copies and stream syncs, in
+    all and inside the period loop (the ``serving.period_loop`` range)."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serving_timed(sc, device)
+    busy_us, n_device, loop, marks = 0.0, 0, [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.name() != "serving.period_loop":  # the range's annotation on the device's timeline is no work
+                busy_us += e.duration_ns() * 1e-3
+                n_device += 1
+        elif e.name() == "serving.period_loop":
+            loop.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.name() in ("cudaLaunchKernel", "aten::_local_scalar_dense", "cudaMemcpyAsync", "cudaStreamSynchronize"):
+            marks.setdefault(e.name(), []).append(e.start_ns())
+    loop.sort()
+    starts = [a for a, _ in loop]
+
+    def inside(ts):
+        i = bisect.bisect_right(starts, ts) - 1
+        return i >= 0 and ts < loop[i][1]
+
+    def count(name, where=None):
+        return sum(1 for ts in marks.get(name, []) if where is None or where(ts))
+
+    busy_s = busy_us * 1e-6
+    return {
+        "kernel_launches": count("cudaLaunchKernel"), "read_backs": count("aten::_local_scalar_dense"),
+        "memcpy_calls": count("cudaMemcpyAsync"), "stream_syncs": count("cudaStreamSynchronize"),
+        "period_loop": {"ranges": len(loop), "kernel_launches": count("cudaLaunchKernel", inside),
+                        "read_backs": count("aten::_local_scalar_dense", inside),
+                        "memcpy_calls": count("cudaMemcpyAsync", inside),
+                        "stream_syncs": count("cudaStreamSynchronize", inside)},
+        "kernels_per_period": count("cudaLaunchKernel", inside) / sc.n_periods,
+        "device_busy_s": busy_s if busy_s > 0 else None,
+        "mean_device_op_us": busy_us / n_device if n_device else None,
+        "busy_share": busy_s / wall_s if busy_s > 0 else None,
+    }
+
+
+def autoscale_phase(device) -> dict:
+    """Serving under spot auto-scaling on the card: the small grids card ==
+    CPU == the host reference and against the JAX package's digest, the
+    zero-traffic anchor, ``serving_bench.py``'s full grid (72 cells) and the
+    576-cell grid, contended and uncontended, on the card and on the CPU,
+    the quick grid's reference engine, and a profile of the contended full
+    grid on the card."""
+    import numpy as np
+
+    from repro_torch.serving import ServingScenario, run_serving
+    from repro_torch.serving.engine import _serving_inputs
+
+    small = autoscale_small_grids()
+    cards = []
+    for name, sc in small.items():
+        card = run_serving(sc, device=device)
+        serving_equal(card, run_serving(sc, device="cpu"), f"small {name}: card vs CPU")
+        serving_equal(card, run_serving(sc, engine="reference"), f"small {name}: card vs reference")
+        if card.n_scale_out.sum() == 0 or (sc.capacity is not None and card.n_preempted.sum() == 0):
+            raise AssertionError(f"small {name}: the grid scaled out nothing or preempted nothing")
+        cards.append(card)
+    if serving_digest(cards) != GOLDEN_AUTOSCALE_SHA256:
+        raise AssertionError("small serving grids: results differ from the JAX package's batch engine")
+    print(f"small serving grids {list(small)}: card == CPU == reference on {len(SERVING_FIELDS)} fields, "
+          "digest equals the JAX package's results", flush=True)
+    for capacity in (None, 6):
+        sc = ServingScenario(base_rps=0.0, horizon_days=0.25, seeds=(0, 1), bid_margins=(0.5, 1.1), capacity=capacity)
+        res = run_serving(sc, device=device)
+        base = exogenous_prices(sc)
+        if not all(np.array_equal(res.spot_price[pi, mi, si], base[:, si])
+                   for pi in range(len(res.policies)) for mi in range(len(res.bid_margins))
+                   for si in range(len(res.seeds))) or res.n_scale_out.any() or (res.availability != 1.0).any():
+            raise AssertionError(f"zero traffic, capacity {capacity}: the card's spot_price is not the exogenous trace")
+    print("zero traffic on the card: spot_price == the exogenous trace, uncontended and in a pool of 6", flush=True)
+
+    grids = {}
+    for label, sc in (("full_contended", autoscale_bench_scenario()),
+                      ("full_uncontended", autoscale_bench_scenario(capacity=None)),
+                      ("wide_contended", autoscale_bench_scenario(seeds=WIDE_SEEDS)),
+                      ("wide_uncontended", autoscale_bench_scenario(capacity=None, seeds=WIDE_SEEDS))):
+        t0 = time.perf_counter()
+        _serving_inputs(sc)  # traffic, traces, free depths, hazards, the ladder (set-up, host)
+        setup_s = time.perf_counter() - t0
+        serving_timed(sc, device)  # warm-up: the card's first launches of these shapes
+        card, card_s = serving_timed(sc, device)
+        cpu, cpu_s = serving_timed(sc, "cpu")
+        serving_equal(card, cpu, f"{label}: card vs CPU")
+        grids[label] = {
+            "cells": sc.n_cells, "periods": sc.n_periods, "capacity": sc.capacity, "setup_s": setup_s,
+            "card_s": card_s, "cpu_s": cpu_s, "cpu_over_card": cpu_s / card_s,
+            "preempted": int(card.n_preempted.sum()), "scale_out": int(card.n_scale_out.sum()),
+            "mean_availability": float(card.availability.mean()),
+        }
+        print(f"{label}: {sc.n_cells} cells x {sc.n_periods} periods, card == CPU on every field; card {card_s:.4f} s,"
+              f" CPU {cpu_s:.4f} s, {grids[label]['preempted']} preemptions", flush=True)
+    quick = autoscale_bench_scenario(quick=True)
+    _serving_inputs(quick)
+    serving_timed(quick, device)
+    q_card, q_card_s = serving_timed(quick, device)
+    q_ref, q_ref_s = serving_timed(quick, None, engine="reference")
+    serving_equal(q_card, q_ref, "quick grid: card vs reference")
+    profile = serving_profile(autoscale_bench_scenario(), device, grids["full_contended"]["card_s"])
+    if profile["period_loop"]["read_backs"] or profile["period_loop"]["stream_syncs"]:
+        raise AssertionError(f"the serving period loop read back from the card: {profile['period_loop']}")
+    out = {"small": list(small), "grids": grids,
+           "quick": {"cells": quick.n_cells, "periods": quick.n_periods, "card_s": q_card_s, "reference_s": q_ref_s,
+                     "speedup": q_ref_s / q_card_s},
+           "card_profile": profile}
+    print(json.dumps({"autoscale": out}), flush=True)
+    return out
+
+
+def suite_phase(device) -> dict:
+    """``examples/suites/serving_diurnal.toml`` through the suite runner into
+    a temporary store on the card, twice: the second pass all cache hits with
+    no ``serving.run`` span; ``verify`` (deep) clean."""
+    from repro_torch import obs
+    from repro_torch.suite import RunStore, load_suite, run_suite
+
+    suite = load_suite(ROOT / "examples/suites/serving_diurnal.toml")
+    with tempfile.TemporaryDirectory(prefix="suite_store_") as tmp:
+        store = RunStore(tmp)
+        passes = []
+        for _ in range(2):
+            with obs.Telemetry() as tel:
+                rep = run_suite(suite, store, device=device)
+            if not rep.ok:
+                raise AssertionError(f"suite {suite.name}: {rep.n_failed} cells failed")
+            passes.append({"hits": rep.n_hits, "simulated": rep.n_misses, "wall_s": rep.wall_s,
+                           "serving_runs": len(tel.find_spans("serving.run"))})
+        if passes[0]["simulated"] != len(rep.outcomes) or passes[1]["hits"] != len(rep.outcomes) \
+                or passes[1]["serving_runs"]:
+            raise AssertionError(f"suite {suite.name}: the second pass simulated: {passes}")
+        stats = store.verify(deep=True)
+        if not stats.ok or stats.n_records != len(rep.outcomes):
+            raise AssertionError(f"suite {suite.name}: verify found {stats.summary()}")
+        out = {"suite": suite.name, "cells": len(rep.outcomes), "engines": sorted({o.record.engine for o in rep.outcomes}),
+               "passes": passes, "verify": stats.summary()}
+    print(f"suite {suite.name}: {out['cells']} cells simulated on the card, then {passes[1]['hits']} cache hits with no "
+          f"serving.run span; verify: {out['verify']}", flush=True)
+    print(json.dumps({"suite": out}), flush=True)
     return out
 
 
@@ -1929,28 +2207,34 @@ def main() -> int:
     # -- 7. the fleet: placement and attempt waves on the card ----------------
     fleet_phase(device)
 
-    # -- 8. the model kernels vs their plain versions at small shapes --------
+    # -- 8. serving under spot auto-scaling: the batch engine's waves on the card
+    autoscale_phase(device)
+
+    # -- 9. the suite control plane: a serving suite through the run store -----
+    suite_phase(device)
+
+    # -- 10. the model kernels vs their plain versions at small shapes --------
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     small_errs = small_kernel_checks(device)
 
-    # -- 9. serving at full width -------------------------------------------
+    # -- 11. serving at full width -------------------------------------------
     found = serve_models(device)
 
-    # -- 10. the codec kernel vs its plain version at small sizes ---------------
+    # -- 12. the codec kernel vs its plain version at small sizes ---------------
     small_codec_checks(device)
 
-    # -- 11. training through the kernels at small sizes -----------------------
+    # -- 13. training through the kernels at small sizes -----------------------
     small_train = small_training_checks(device)
 
-    # -- 12. training at full width --------------------------------------------
+    # -- 14. training at full width --------------------------------------------
     training, codec_measured = train_full_width(device)
 
-    # -- 13. the spot campaign at full width ----------------------------------
+    # -- 15. the spot campaign at full width ----------------------------------
     campaign = spot_campaign(device)
     print(json.dumps({"training": {"card": card, **training, "campaign": campaign, "small": small_train}}), flush=True)
 
-    # -- 14. the kernels line -------------------------------------------------
+    # -- 16. the kernels line -------------------------------------------------
     rows = model_kernel_rows(found, small_errs)
     for row in rows:
         extra = campaign["launches"].get(row["name"], 0) + (
@@ -1961,7 +2245,7 @@ def main() -> int:
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
     print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
-    # -- 15. the result line ------------------------------------------------
+    # -- 17. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -28,6 +28,7 @@ backward-compatibility contract.
 from repro_torch.market.auction import (
     ClearingResult,
     clear_periods,
+    clear_periods_torch,
     clear_stack,
     effective_prices,
     effective_trace,
@@ -49,6 +50,7 @@ __all__ = [
     "Registration",
     "SpotMarket",
     "clear_periods",
+    "clear_periods_torch",
     "clear_stack",
     "effective_prices",
     "effective_trace",

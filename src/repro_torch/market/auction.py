@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.market import PriceTrace
 from repro_torch.market.background import MarketParams, free_depth, resolve_ref_price
@@ -195,3 +196,35 @@ def clear_periods(
         base,
     )
     return n_served.astype(np.int64), price
+
+
+def clear_periods_torch(
+    bids: torch.Tensor,
+    active: torch.Tensor,
+    base: torch.Tensor,
+    ladder: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`clear_periods` on tensors, on whatever device they lie.
+
+    ``bids`` is ``(..., n_bidders)``, ``active`` and ``ladder`` are
+    ``(..., n_bidders, n_periods)``, ``base`` is ``(..., n_periods)``; the
+    leading axes batch independent clearings (the serving engine clears
+    every spot type of a period in one call).  The ladder is required: it
+    holds :func:`marginal_price` computed on the host, since a device
+    ``pow`` and ``round`` do not give NumPy's bits.  The same masked sort
+    (``torch.sort`` descending in place of ``-np.sort(-x)``: the same
+    values), the same comparison and the same gather as the NumPy version,
+    so ``n_served`` (int64) and the price are ``==`` to it.
+    """
+    tel = _obs_current()
+    if tel.enabled:
+        n_calls = int(np.prod(active.shape[:-2], dtype=np.int64))
+        tel.count("market.clear_periods", n_calls)
+        tel.count("market.cleared_period_cells", n_calls * active.shape[-1])
+    stack = torch.where(active, bids.to(torch.float64)[..., :, None], float("-inf"))
+    b_sorted = torch.sort(stack, dim=-2, descending=True).values
+    n_served = (b_sorted >= ladder).sum(dim=-2)
+    rank = torch.clamp(n_served - 1, min=0)
+    at_rank = torch.gather(ladder, -2, rank.unsqueeze(-2)).squeeze(-2)
+    price = torch.where(n_served > 0, at_rank, base)
+    return n_served.to(torch.int64), price

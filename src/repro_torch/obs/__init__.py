@@ -1,4 +1,4 @@
-"""Observability: wall-clock spans, counters, and the build/trace registry.
+"""Observability: wall-clock spans, counters, exporters, and the build/trace registry.
 
 Nothing is recorded unless a :class:`Telemetry` collector is activated::
 
@@ -8,6 +8,9 @@ Nothing is recorded unless a :class:`Telemetry` collector is activated::
         repro_torch.engine.run(scenario)
     tel.spans[0]            # the engine.run span tree
     tel.counter("engine.cells")
+    print(tel.summary())                 # span totals, counters, gauges
+    tel.write_chrome_trace("trace.json") # chrome://tracing / perfetto
+    tel.write_jsonl("telemetry.jsonl")
 
 The engine records its phases (``engine.run`` / ``grid`` / ``sim`` /
 ``bill``) as spans, the source of
@@ -18,6 +21,7 @@ events and its leases as simulation-time events (``tel.events``) and counts
 checkpoints, preemptions, restores and fallbacks.
 """
 
+from repro_torch.obs.exporters import summary_table, write_chrome_trace, write_jsonl
 from repro_torch.obs.retrace import (
     RetraceError,
     RetraceGuard,
@@ -38,5 +42,8 @@ __all__ = [
     "current",
     "record_trace",
     "retrace_guard",
+    "summary_table",
     "trace_count",
+    "write_chrome_trace",
+    "write_jsonl",
 ]

@@ -1,5 +1,5 @@
-"""Telemetry core: hierarchical wall-clock spans, monotonic counters, and
-simulation-time events (the paper's monitoring events ``E_ckpt`` /
+"""Telemetry core: hierarchical wall-clock spans, monotonic counters, gauges,
+and simulation-time events (the paper's monitoring events ``E_ckpt`` /
 ``E_terminate`` / ``E_launch`` and the trainer's lease records, stamped with
 virtual time).
 
@@ -10,7 +10,9 @@ module-level :data:`NULL` no-op.  Activation is a context manager (or the
 
 With nothing activated, every instrumentation site costs one global read
 plus either a predicate check (counters) or a shared do-nothing context
-manager (spans): no allocation, no clock read.
+manager (spans): no allocation, no clock read.  The exporters
+(:mod:`repro_torch.obs.exporters`) write a collector as a JSONL log, a Chrome
+trace or a summary table.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ class Telemetry:
         self.epoch = time.perf_counter()
         self.spans: list[Span] = []  # root spans, in emission order
         self.counters: dict[str, float] = {}
+        self.gauges: dict[str, float] = {}
         self.events: list[SimEvent] = []
         # span nesting is tracked per thread, so spans from several threads
         # never interleave their nesting; counter updates take the lock
@@ -138,9 +141,43 @@ class Telemetry:
         """Current value of counter ``name`` (0 when never incremented)."""
         return self.counters.get(name, 0)
 
+    def gauge(self, name: str, value: float) -> None:
+        """Record the latest observation of ``name``."""
+        self.gauges[name] = value
+
     def event(self, name: str, t: float, **attrs) -> None:
         """Record a simulation-time event (``t`` in simulation seconds)."""
         self.events.append(SimEvent(name=name, t=float(t), attrs=attrs, wall=time.perf_counter() - self.epoch))
+
+    def iter_spans(self) -> Iterator[Span]:
+        """Every recorded span, depth-first in emission order."""
+
+        def walk(spans: list[Span]) -> Iterator[Span]:
+            for s in spans:
+                yield s
+                yield from walk(s.children)
+
+        return walk(self.spans)
+
+    def find_spans(self, name: str) -> list[Span]:
+        return [s for s in self.iter_spans() if s.name == name]
+
+    # -- exporters (in repro_torch.obs.exporters) ---------------------------
+
+    def summary(self) -> str:
+        from repro_torch.obs.exporters import summary_table
+
+        return summary_table(self)
+
+    def write_jsonl(self, path) -> None:
+        from repro_torch.obs.exporters import write_jsonl
+
+        write_jsonl(self, path)
+
+    def write_chrome_trace(self, path) -> None:
+        from repro_torch.obs.exporters import write_chrome_trace
+
+        write_chrome_trace(self, path)
 
     def __enter__(self) -> "Telemetry":
         _ACTIVE.append(self)
@@ -160,6 +197,9 @@ class _NullTelemetry(Telemetry):
         return _NULL_SPAN_CTX
 
     def count(self, name: str, value: float = 1) -> None:
+        pass
+
+    def gauge(self, name: str, value: float) -> None:
         pass
 
     def event(self, name: str, t: float, **attrs) -> None:

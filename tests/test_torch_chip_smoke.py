@@ -302,3 +302,46 @@ def test_fleet_and_capacity_studies_are_the_stated_configurations(smoke):
     small = smoke.small_capacity_studies()
     assert {sc.demand for name, sc in small.items() if name.startswith("market_contention")} == {1, 2, 3, 4}
     assert all(sc.capacity is not None for sc in small.values())
+
+
+def test_autoscale_golden_digest_is_the_reference_result(smoke):
+    """The small serving grids: the pinned digest is that of ``repro``'s
+    batch engine, and the port's CPU batch engine and host reference give
+    it too."""
+    from repro.serving import ServingScenario as RefServingScenario
+    from repro.serving import run_serving as ref_run_serving
+
+    from repro_torch.serving import run_serving
+
+    grids = smoke.autoscale_small_grids()
+    assert [sc.capacity for sc in grids.values()] == [None, 12, 12]
+    assert all(sc.flash_crowds and sc.policies == ("target", "threshold", "hazard") for sc in grids.values())
+    want = []
+    for sc in grids.values():
+        ref = RefServingScenario(base_rps=sc.base_rps, flash_crowds=sc.flash_crowds, horizon_days=sc.horizon_days,
+                                 seeds=sc.seeds, bid_margins=sc.bid_margins, capacity=sc.capacity,
+                                 max_spot=sc.max_spot)
+        assert ref.canonical() == sc.canonical()
+        want.append(ref_run_serving(ref, engine="batch"))
+    assert smoke.serving_digest(want) == smoke.GOLDEN_AUTOSCALE_SHA256
+    for engine, device in (("batch", "cpu"), ("reference", None)):
+        got = [run_serving(sc, engine=engine, device=device) for sc in grids.values()]
+        assert smoke.serving_digest(got) == smoke.GOLDEN_AUTOSCALE_SHA256
+    assert set(smoke.SERVING_FIELDS) == {
+        f.name for f in __import__("dataclasses").fields(want[0]) if f.name not in (
+            "policies", "bid_margins", "seeds", "spot_types", "engine", "wall_s")}
+
+
+def test_autoscale_grids_are_the_benchmarks(smoke):
+    """``autoscale_bench_scenario`` is ``benchmarks/serving_bench.py``'s
+    ``bench_scenario`` (full and quick), and the wide grid is the full one at
+    seeds 0-63 (576 cells)."""
+    spec = importlib.util.spec_from_file_location("serving_bench", ROOT / "benchmarks/serving_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    for quick in (False, True):
+        assert smoke.autoscale_bench_scenario(quick=quick).canonical() == bench.bench_scenario(quick).canonical()
+    full = smoke.autoscale_bench_scenario()
+    assert (full.n_cells, full.n_periods, full.capacity, full.max_spot) == (72, 1152, 12, 16)
+    wide = smoke.autoscale_bench_scenario(capacity=None, seeds=smoke.WIDE_SEEDS)
+    assert (wide.n_cells, wide.capacity) == (576, None)

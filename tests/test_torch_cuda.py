@@ -523,3 +523,68 @@ def test_smoke_model_gradients_through_the_kernels(cuda, arch):
         assert g is not None and bool((g != 0).any())
         scale = float(gp.abs().max())
         assert float((g - gp).abs().max()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# serving under spot auto-scaling and the suite, on the card
+# ---------------------------------------------------------------------------
+
+SERVING_QUICK = dict(base_rps=1200.0, flash_crowds=1, horizon_days=0.25, seeds=(0, 1), bid_margins=(0.5, 1.1),
+                     max_spot=8)
+
+
+@pytest.mark.parametrize("capacity", [None, 12, 4], ids=["uncontended", "capacity_12", "capacity_4"])
+def test_serving_batch_engine_on_card_equals_the_cpu_and_reference(cuda, capacity):
+    from repro_torch.serving import ServingScenario, run_serving
+
+    sc = ServingScenario(**SERVING_QUICK, capacity=capacity)
+    card = run_serving(sc, device=cuda)
+    for want in (run_serving(sc, device="cpu"), run_serving(sc, engine="reference")):
+        for f in dataclasses.fields(card):
+            if f.name not in ("engine", "wall_s"):
+                a, b = getattr(card, f.name), getattr(want, f.name)
+                assert np.array_equal(a, b, equal_nan=True) if isinstance(a, np.ndarray) else a == b, f.name
+
+
+def test_serving_under_chaos_on_card_equals_the_cpu(cuda):
+    from repro_torch import faults
+    from repro_torch.serving import ServingScenario, run_serving
+
+    sc = ServingScenario(**SERVING_QUICK, capacity=6)
+    rules = [faults.FaultRule("serving.replica_boot", p=0.3, max_fires=2),
+             faults.FaultRule("serving.scale_decision", p=0.2, max_fires=2)]
+    with faults.FaultPlan(rules, seed=7) as a:
+        card = run_serving(sc, device=cuda)
+    with faults.FaultPlan(rules, seed=7) as b:
+        cpu = run_serving(sc, device="cpu")
+    assert [x.describe() for x in a.log] == [x.describe() for x in b.log] and card.n_boot_lost.sum() > 0
+    assert np.array_equal(card.capacity_rps, cpu.capacity_rps) and np.array_equal(card.cost, cpu.cost)
+
+
+def test_clear_periods_torch_on_card_equals_numpy(cuda):
+    from repro_torch.market import MarketParams, clear_periods, clear_periods_torch, marginal_price
+
+    rng = np.random.default_rng(0)
+    n, P, cap = 16, 200, 12
+    base = np.round(rng.uniform(0.05, 0.6, P), 3)
+    free = rng.integers(0, cap + 1, P).astype(np.int64)
+    bids = np.round(rng.uniform(0.04, 0.9, n), 3)
+    active = rng.random((n, P)) < 0.6
+    ladder = marginal_price(base[None, :], free[None, :], np.arange(1, n + 1)[:, None], cap, MarketParams())
+    want = clear_periods(bids, active, base, free, cap, MarketParams())
+    got = clear_periods_torch(*(torch.from_numpy(x).to(cuda) for x in (bids, active, base, ladder)))
+    assert np.array_equal(got[0].cpu().numpy(), want[0]) and np.array_equal(got[1].cpu().numpy(), want[1])
+
+
+def test_serving_suite_on_card_is_cached_and_verifies(cuda, tmp_path):
+    from pathlib import Path
+
+    from repro_torch.suite import RunStore, load_suite, run_suite
+
+    suite = load_suite(Path(__file__).resolve().parents[1] / "examples/suites/serving_diurnal.toml")
+    store = RunStore(tmp_path / "store")
+    first = run_suite(suite, store, device=cuda)
+    with obs.Telemetry() as tel:
+        second = run_suite(suite, store, device=cuda)
+    assert first.n_misses == second.n_hits == 2 and not tel.find_spans("serving.run")
+    assert store.verify(deep=True).ok

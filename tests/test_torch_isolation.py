@@ -99,6 +99,22 @@ def test_every_module_is_found():
         "repro_torch.kernels.fleet_step.ops",
         "repro_torch.kernels.fleet_step.ref",
         "repro_torch.launch.market_contention",
+        "repro_torch.obs.exporters",
+        "repro_torch.serving",
+        "repro_torch.serving.autoscaler",
+        "repro_torch.serving.engine",
+        "repro_torch.serving.replicas",
+        "repro_torch.serving.slo",
+        "repro_torch.serving.traffic",
+        "repro_torch.launch.spot_serving",
+        "repro_torch.suite",
+        "repro_torch.suite.__main__",
+        "repro_torch.suite.hashing",
+        "repro_torch.suite.layers",
+        "repro_torch.suite.runner",
+        "repro_torch.suite.spec",
+        "repro_torch.suite.store",
+        "repro_torch.suite.trend",
     ):
         assert required in names
 
