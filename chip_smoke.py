@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve and train.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models and train.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -96,28 +96,36 @@ Phases, in order; any failure exits nonzero and nothing is caught:
 10. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
    its plain PyTorch version on the card at small shapes: causal and
    bidirectional attention, windows (one off the kv tile, one past Sk),
-   ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 16}
-   (3 divides no tile), head dims 16-256, float32 and bfloat16; scans of
+   ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 6, 7,
+   8, 9, 12, 16} (3, 6, 7, 9 and 12 divide no tile: 126 or 120 of its 128 rows),
+   head dims 16-256 with kimi-k2's 112, float32 and bfloat16; scans of
    ragged lengths and widths on random inputs from a seed, the RG-LRU scan
    bit for bit (``torch.equal``) on both of its bodies.
-11. Serves each of glm4-9b, recurrentgemma-9b and falcon-mamba-7b at its full
-   published config (every layer, random weights from a seeded
-   ``torch.Generator`` on the card): 2 requests of 4096 prompt tokens, prefill,
-   then 16 greedy decode steps, through ``repro_torch.models.transformer``,
-   after one untimed warm-up prefill.  The kernels' launch counts are reset
-   just before the timed prefill and read just after (40 flash; 12 flash + 26
-   RG-LRU; 64 SSM).  The same requests then go
-   through the plain versions on the card (``impl="plain"``) and the
+11. Serves every architecture of ``repro_torch.configs`` at its full published
+   widths (random weights from a seeded ``torch.Generator`` on the card):
+   glm4-9b, recurrentgemma-9b, falcon-mamba-7b, internlm2-20b, starcoder2-3b,
+   starcoder2-7b, internvl2-1b (256 random vision embeddings over the first 256
+   prompt positions) and whisper-large-v3 (2 x 1500 random encoder frames) with
+   every layer; arctic-480b with 2 of its 35 layers and kimi-k2-1t-a32b with 1
+   of its 61 (``MODEL_LAYERS``: their experts fill the card).  2 requests of
+   4096 prompt tokens, prefill, then 16 greedy decode steps, through
+   ``repro_torch.models.transformer``, after one untimed warm-up prefill.  The
+   kernels' launch counts are reset just before the timed prefill and read just
+   after (``MODELS``: 40 flash; 12 flash + 26 RG-LRU; 64 SSM; 48, 30, 32, 24,
+   64 = 32 encoder + 32 decoder, 2 and 1 flash).  A MoE model's prefill runs
+   twice more and must give the same bits (``torch.equal``).  The same requests
+   then go through the plain versions on the card (``impl="plain"``) and the
    last-token logits are compared.  Each kernel is then held against its plain
    version (the RG-LRU scan bit for bit), and timed, on the full-width inputs
-   of the first layer that called it, beside its bound and (attention)
+   of the first layer that called it (whisper: its encoder's and its decoder's
+   attention), beside its bound and (attention)
    ``scaled_dot_product_attention``.
    Prints one ``{"serving": ...}`` line per model.
 12. Holds the checkpoint codec kernel against its plain version on the card, bit
    for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
    float32, bfloat16 and float16, all-zero blocks, exact .5 ties of a block's
    step, magnitudes across each type's finite range, and a NaN block.
-13. Small training checks on the card: for the smoke configs of the three
+13. Small training checks on the card: for the smoke configs of the ten
    models, one ``loss_fn`` value and every parameter's gradient through the
    kernels' autograd Functions against ``impl="plain"`` (bf16: the loss within
    the serving tolerances; float32: the loss and each leaf's gradient); every
@@ -1158,12 +1166,24 @@ SCAN_TOL = 1e-4
 #: relative to the logits' scale rather than element by element.
 LOGITS_TOL = 2e-2
 
-#: The served models and the kernel launches one prefill makes.
+#: The served models and the kernel launches one prefill makes (whisper: 32 encoder + 32
+#: decoder self-attentions; its cross-attention is plain, as in the JAX package).
 MODELS = (
     ("glm4-9b", {"flash_attention": 40}),
     ("recurrentgemma-9b", {"flash_attention": 12, "rglru_scan": 26}),
     ("falcon-mamba-7b", {"ssm_scan": 64}),
+    ("internlm2-20b", {"flash_attention": 48}),
+    ("starcoder2-3b", {"flash_attention": 30}),
+    ("starcoder2-7b", {"flash_attention": 32}),
+    ("internvl2-1b", {"flash_attention": 24}),
+    ("whisper-large-v3", {"flash_attention": 64}),
+    ("arctic-480b", {"flash_attention": 2}),
+    ("kimi-k2-1t-a32b", {"flash_attention": 1}),
 )
+#: Layers served of the MoE models, at their published widths (every other model serves
+#: all its layers): arctic-480b's experts are 26.8 GB a layer, kimi-k2's 33.8 GB (+ 4.7 GB
+#: of embeddings); two of kimi-k2's would be ~73 GB of the card's 80.
+MODEL_LAYERS = {"arctic-480b": 2, "kimi-k2-1t-a32b": 1}
 BATCH, PROMPT, DECODE_STEPS = 2, 4096, 16
 MODEL_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1191,6 +1211,14 @@ ATTN_CASES = (
     (2, 130, 130, 2, 1, 256, True, 300, 0),  # window > Sk; G = 1 at D = 256
     (1, 129, 300, 1, 4, 256, True, 70, 171),  # window 70 (kv tile 64), q_offset, D = 256
     (1, 190, 190, 1, 16, 128, False, 77, 0),  # bidirectional with a window, G = 16
+    (2, 333, 333, 1, 8, 112, True, 0, 0),  # D = 112 (kimi-k2), G = 8, causal, ragged
+    (1, 200, 455, 2, 8, 112, True, 100, 255),  # D = 112 with q_offset and a window off the kv tile
+    (1, 150, 150, 1, 4, 112, False, 0, 0),  # D = 112 bidirectional
+    (1, 300, 300, 2, 9, 128, True, 0, 0),  # G = 9 (starcoder2-7b): 14 positions, 126 of 128 rows
+    (2, 250, 250, 1, 12, 128, True, 0, 0),  # G = 12 (starcoder2-3b): 10 positions, 120 rows
+    (1, 301, 301, 2, 7, 64, True, 0, 0),  # G = 7 at D = 64 (internvl2-1b): 18 positions, 126 rows
+    (2, 200, 200, 2, 6, 128, True, 0, 0),  # G = 6 (internlm2-20b): 21 positions, 126 rows
+    (1, 300, 300, 4, 1, 64, False, 0, 0),  # bidirectional, G = 1, D = 64 (whisper's encoder)
 )
 #: Small scan cases: SSM (B, S, D, N, C dtype) and RG-LRU (B, S, W); no S is a multiple
 #: of the steps a thread loads ahead (4 and 8) or of the RG-LRU chunk (64 steps).  RG-LRU
@@ -1406,8 +1434,27 @@ def small_kernel_checks(device) -> dict[str, float]:
     return errs
 
 
-def serve(T, cfg, params, prompt, impl) -> tuple:
-    """Prefill the prompt, then DECODE_STEPS greedy steps; returns (last-token
+def model_batch(cfg, device, seed=1, batch=BATCH, prompt=PROMPT) -> dict:
+    """The requests: random prompt tokens from a seeded generator on the card, with
+    random ``frames`` (an enc-dec's encoder input) or ``vision_embeds`` over the
+    first ``vision_tokens`` positions of each prompt (a VLM's)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=device)}
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, cfg.encoder_positions, cfg.d_model), generator=gen, device=device,
+                                    dtype=dtype)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = torch.randn((batch, cfg.vision_tokens, cfg.d_model), generator=gen, device=device,
+                                           dtype=dtype)
+        out["vision_mask"] = (torch.arange(prompt, device=device) < cfg.vision_tokens).expand(batch, prompt)
+    return out
+
+
+def serve(T, cfg, params, batch, impl) -> tuple:
+    """Prefill the requests, then DECODE_STEPS greedy steps; returns (last-token
     prefill logits, the generated tokens, timings).  Decode runs the plain step
     functions on every path, as the JAX package does."""
     import torch
@@ -1417,7 +1464,7 @@ def serve(T, cfg, params, prompt, impl) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = T.prefill(cfg, params, {"tokens": prompt}, PROMPT + DECODE_STEPS, impl=impl)
+    logits, cache = T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS, impl=impl)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tok = greedy_sample(logits)
@@ -1440,11 +1487,13 @@ def serve(T, cfg, params, prompt, impl) -> tuple:
 
 class FirstCalls:
     """Within the block, records the arguments of each kernel wrapper's first
-    ``prepare`` (the full-width inputs of the first layer that calls it)."""
+    ``prepare`` (the full-width inputs of the first layer that calls it), and in
+    ``shapes`` the first call of each other shape or mask."""
 
     def __init__(self, mods):
         self.mods = mods
         self.inputs: dict[str, tuple] = {}
+        self.shapes: dict[str, dict] = {}
         self._orig: dict = {}
 
     def __enter__(self):
@@ -1453,6 +1502,8 @@ class FirstCalls:
 
             def wrapped(*args, _name=name, _orig=orig, **kw):
                 self.inputs.setdefault(_name, (args, kw))
+                key = (tuple(tuple(a.shape) for a in args), tuple(sorted(kw.items())))
+                self.shapes.setdefault(_name, {}).setdefault(key, (args, kw))
                 return _orig(*args, **kw)
 
             mod.prepare = wrapped
@@ -1489,6 +1540,18 @@ def sdpa_ms(q, k, v, causal, window, q_offset) -> float:
     return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=is_causal, **kw), reps=10)
 
 
+def attention_body(q) -> str:
+    """The body of flash_attention.cu that serves q's dtype and head dim."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    d = q.shape[-1]
+    if q.dtype != torch_dtype("bfloat16"):
+        return f"fma D={d}"
+    if d not in flash.TMA_HEAD_DIMS:
+        return f"mma.sync D={d}"
+    return f"wgmma+tma D={d}" + (" in the D=128 layout (TMA zero-fills columns 112-127)" if d == 112 else "")
+
+
 def measure_kernel(name, mods, args, kw) -> dict:
     """Hold a kernel against its plain version on one layer's full-width inputs, then
     time its bare launch, its whole wrapper and the plain version."""
@@ -1521,6 +1584,7 @@ def measure_kernel(name, mods, args, kw) -> dict:
         row["library_ms"] = sdpa_ms(*args, kw["causal"], kw["window"], kw["q_offset"])
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["vs_library"] = row["ms"] / row["library_ms"]
+        row["body"] = attention_body(args[0])
         row.update({k: kw[k] for k in ("causal", "window", "q_offset")})
     else:
         row["bound_ms"], row["bound_by"] = scan_bound(name, args)
@@ -1542,27 +1606,36 @@ def serve_models(device) -> dict[str, dict]:
     mods = model_kernel_modules()
     found = {name: {"launches": {}, "full_width": {}} for name in mods}
     for arch, expected in MODELS:
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=MODEL_LAYERS.get(arch, full.n_layers))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = T.init_params(cfg, seed=0, device=device)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(x.numel() for x in params.values() if isinstance(x, torch.Tensor))
-        n_params += sum(x.numel() for layer in params["layers"] for x in layer.values())
-        gen = torch.Generator(device=device).manual_seed(1)
-        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device)
+        n_params += sum(x.numel() for name in ("layers", "encoder") for layer in params.get(name, ())
+                        for x in layer.values())
+        batch = model_batch(cfg, device)
         # warm-up, not timed or counted: the first prefill at these shapes also pays for
         # loading and choosing the library's matmul kernels
-        T.prefill(cfg, params, {"tokens": prompt}, PROMPT + DECODE_STEPS)
+        T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS)
         torch.cuda.synchronize()
 
         reset_launches()
-        logits, tokens, kernel_stats = serve(T, cfg, params, prompt, impl=None)  # the main path
+        logits, tokens, kernel_stats = serve(T, cfg, params, batch, impl=None)  # the main path
         launches = read_launches()
         if launches != {name: expected.get(name, 0) for name in launches}:
             raise AssertionError(f"{arch}: kernel launches {launches}, expected {expected}")
-        plain_logits, plain_tokens, plain_stats = serve(T, cfg, params, prompt, impl="plain")
+        same_bits = None
+        if cfg.family == "moe":  # the dispatch and combine use no atomics: a rerun gives the same bits
+            again, _ = T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS)
+            first, _ = T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS)
+            same_bits = torch.equal(again, first) and torch.equal(first, logits)
+            if not same_bits:
+                raise AssertionError(f"{arch}: two prefills of the same requests differ in their logits' bits")
+            del again, first
+        plain_logits, plain_tokens, plain_stats = serve(T, cfg, params, batch, impl="plain")
         if logits.shape != (BATCH, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch}: logits {tuple(logits.shape)} or non-finite values")
         err = float((logits.float() - plain_logits.float()).abs().max())
@@ -1572,26 +1645,35 @@ def serve_models(device) -> dict[str, dict]:
         agree = torch.equal(tokens, plain_tokens)
         del logits, plain_logits
 
-        # the model's first layers up to the first of each kind again, recording the
-        # kernels' inputs (the same as the full model's first layers get)
+        # the model's first layers up to the first of each kind again (an enc-dec's first
+        # encoder layer too), recording the kernels' inputs (the same as the full model's
+        # first layers get); each shape an attention takes there is measured
         kinds = T.layer_kinds(cfg)
         n_first = max(kinds.index(kind) for kind in set(kinds)) + 1
-        head = dataclasses.replace(cfg, n_layers=n_first)
+        head = dataclasses.replace(cfg, n_layers=n_first, encoder_layers=min(cfg.encoder_layers, 1))
+        head_params = dict(params, layers=params["layers"][:n_first])
+        if "encoder" in params:
+            head_params["encoder"] = params["encoder"][:1]
         with FirstCalls(mods) as calls:
-            T.prefill(head, dict(params, layers=params["layers"][:n_first]), {"tokens": prompt}, PROMPT)
+            T.prefill(head, head_params, batch, PROMPT)
+        del head_params
         for name in list(calls.inputs):
-            args, kw = calls.inputs.pop(name)
             found[name]["launches"][arch] = launches[name]
-            found[name]["full_width"][arch] = measure_kernel(name, mods, args, kw)
+            for i, (args, kw) in enumerate(calls.shapes.pop(name).values()):
+                label = arch if i == 0 else f"{arch} ({'decoder' if cfg.family == 'encdec' else i})"
+                found[name]["full_width"][label] = measure_kernel(name, mods, args, kw)
             del args, kw
+        calls.inputs.clear()
 
         print(json.dumps({"serving": {
-            "model": arch, "layers": cfg.n_layers, "params_b": n_params / 1e9, "batch": BATCH,
+            "model": arch, "layers": cfg.n_layers, "of_layers": full.n_layers,
+            "encoder_layers": cfg.encoder_layers, "params_b": n_params / 1e9, "batch": BATCH,
             "prompt_tokens": PROMPT, "decode_steps": DECODE_STEPS, "init_s": init_s, "launches": launches,
             "logits_max_abs_err": err, "logits_scale": scale, "logits_tol": LOGITS_TOL * (1.0 + scale),
-            "greedy_tokens_agree": agree, "kernel": kernel_stats, "plain": plain_stats,
+            "greedy_tokens_agree": agree, "moe_prefill_same_bits": same_bits, "kernel": kernel_stats,
+            "plain": plain_stats,
         }}), flush=True)
-        del params, prompt, tokens, plain_tokens
+        del params, batch, tokens, plain_tokens
         torch.cuda.empty_cache()
     return found
 
@@ -1628,7 +1710,7 @@ CODEC_SIZES = (1, 255, 256, 257, 1000, 4096, (1 << 20) + 3)
 #: of the plain path's leaf: the backward recomputes the plain version in both paths,
 #: so they differ only where the kernel's float32 forward (within 2e-6 of the plain
 #: version) moves the activations the backward starts from.
-TRAIN_LOSS_TOL = {"dense": 2e-2, "hybrid": 3e-2, "ssm": 2e-2}
+TRAIN_LOSS_TOL = {"dense": 2e-2, "vlm": 2e-2, "moe": 2e-2, "encdec": 2e-2, "hybrid": 3e-2, "ssm": 2e-2}
 TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-4
 #: The full-width training run: glm4-9b cut to 4 of its 40 layers (all 40 with AdamW are
 #: 9.4 B parameters x 12 bytes = 113 GB, above the card's 80 GB).
@@ -1725,9 +1807,10 @@ def small_training_checks(device) -> dict:
         for dtype in ("bfloat16", "float32"):
             cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
             params = T.init_params(cfg, seed=0, device=device)
-            gen = torch.Generator(device=device).manual_seed(3)
-            tokens = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device=device)
-            batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+            tokens = model_batch(cfg, device, seed=3, batch=2, prompt=65)
+            batch = {**tokens, "tokens": tokens["tokens"][:, :-1], "labels": tokens["tokens"][:, 1:]}
+            if "vision_mask" in batch:
+                batch["vision_mask"] = batch["vision_mask"][:, :-1]
             res = {}
             for impl in (None, "plain"):
                 leaves, treedef = tree_lib.flatten(params)

@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``arch id`` -> :class:`ModelConfig`.
 
-Only the architectures whose serving path has been ported are registered
-(``PORTED_ARCHS``); the others of :mod:`repro.configs` raise ``KeyError``
-here until their families are ported.
+Every architecture of :mod:`repro.configs` is registered (``PORTED_ARCHS``,
+in the same order as its ``ARCH_IDS``); an unknown id raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -12,9 +11,16 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
-    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
 PORTED_ARCHS = tuple(_MODULES)
@@ -22,7 +28,7 @@ PORTED_ARCHS = tuple(_MODULES)
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported yet; ported: {PORTED_ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {PORTED_ARCHS}")
     return importlib.import_module(_MODULES[arch])
 
 

@@ -20,8 +20,8 @@
 // tiles that some row does not see in full (the diagonal, the window's edge, a ragged last
 // tile) pay for the position mask.
 //
-// bfloat16, D in {64, 128, 256} (the served models' 128 and 256): warp-specialised wgmma +
-// TMA, in the shape of FlashAttention-3.
+// bfloat16, D in {64, 112, 128, 256} (the served models' 64, 112, 128 and 256):
+// warp-specialised wgmma + TMA, in the shape of FlashAttention-3.
 //   * Three warpgroups.  Warpgroup 0 gives its registers back (setmaxnreg.dec to 40) and one
 //     of its threads issues TMA loads: the 128-row Q tile once (a 4-d box {64 columns, G
 //     heads, 128 / G positions, 1} over q as (B, Sq, H, D), so the GQA packing costs no
@@ -40,6 +40,11 @@
 //     were each measured at the served shapes and moved nothing (PERF.md).
 //   * Tiles (Q + 2 stages of K and V in shared memory): D = 64: 128 x 128 keys (80 KB);
 //     D = 128: 128 x 128 (160 KB); D = 256: 128 x 64 (192 KB; O is 128 registers a thread).
+//   * D = 112 (kimi-k2: 7168 / 64 heads) runs the D = 128 layout: the tensor maps give the
+//     rows their real 112 columns, so TMA fills columns 112-127 of every Q, K and V box
+//     with zeros (the boxes' bytes, which the mbarriers count, are whole either way) and
+//     clips them off the O store.  Q K^T takes K = 112 (7 wgmma steps of 16); P V runs N =
+//     128, whose last 16 columns are zeros and never stored.  No padded copy is made.
 //   * Softmax in the exp2 domain: p = ex2.approx(fmaf(s, scale * log2 e, -m * scale *
 //     log2 e)), alpha = ex2((m_old - m_new) * scale * log2 e).  The library is built with
 //     --fmad=false (the sweep's bits need it), so this one contraction is written out.  A
@@ -75,6 +80,7 @@ constexpr int kRows = 64;      // query rows (positions x heads) of a float32 bl
 constexpr int kMmaWarps = 8;   // mma.sync body: warps of a block, 16 rows each
 constexpr int kMmaRows = 16 * kMmaWarps;
 constexpr int kMaxGroup = 64;  // largest G = H / KV (the float32 tile's rows)
+constexpr int kHeadDim112 = 112;  // the one head dim that is no power of two
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -99,11 +105,12 @@ constexpr int smem_floats() {
 
 template <int D, int KT>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Args a) {
-  static_assert(kThreads % KT == 0 && KT % 32 == 0 && D % 4 == 0, "tile shape");
+  static_assert(kThreads % KT == 0 && KT % 32 == 0 && D % 4 == 0 && D <= kThreads, "tile shape");
   constexpr int kScoreGroups = kThreads / KT;          // row groups of the score phase
   constexpr int kScoreRows = kRows / kScoreGroups;     // score rows per thread
-  constexpr int kAccRows = kRows * D / kThreads;       // output rows per thread
-  constexpr int kAccGroups = kThreads / D > 0 ? kThreads / D : 1;
+  constexpr int kAccGroups = kThreads / D;             // row groups of the output phase
+  constexpr int kAccRows = kRows / kAccGroups;         // output rows per thread
+  static_assert(kRows % kAccGroups == 0, "output rows");
 
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kRows][D]
@@ -143,6 +150,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Arg
   if (a.window) k_begin = max(k_begin, q_lo - a.window + 1);
 
   const int acc_col = tid % D, acc_group = tid / D;  // output column and row group
+  const bool acc_active = acc_group < kAccGroups;    // D = 112: threads 224-255 hold no output
   float acc[kAccRows];
 #pragma unroll
   for (int j = 0; j < kAccRows; ++j) acc[j] = 0.f;
@@ -223,6 +231,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Arg
     __syncthreads();
 
     // acc = acc * alpha + P V for column acc_col, rows acc_group + j * kAccGroups
+    if (!acc_active) continue;
 #pragma unroll
     for (int j = 0; j < kAccRows; ++j) acc[j] *= alpha_s[acc_group + j * kAccGroups];
     for (int c = 0; c < KT; c += 4) {
@@ -245,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Arg
 #pragma unroll
   for (int j = 0; j < kAccRows; ++j) {
     const int r = acc_group + j * kAccGroups;
-    if (r < rows) {
+    if (acc_active && r < rows) {
       const float l = fmaxf(l_s[r], 1e-37f);
       o[((b * a.Sq + q0 + r / a.G) * a.H + kvh * a.G + r % a.G) * D + acc_col] = acc[j] / l;
     }
@@ -601,13 +610,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, u
   else wgmma_rs_n256(d, a, b);
 }
 
-// S = Q K^T for a consumer's 64 rows: D / 16 steps of 16 columns (32 bytes inside a
+// S = Q K^T for a consumer's 64 rows: DK / 16 steps of 16 columns (32 bytes inside a
 // swizzled row; a new column chunk every 4 steps).
-template <int D, int KT>
+template <int DK, int KT>
 __device__ __forceinline__ void issue_qk(float (&s)[KT / 2], uint32_t q_addr, uint32_t k_addr) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     const uint64_t a = sw128_desc(q_addr + (kk / 4) * kTmaRows * kSwizzleRow + off, 16);
     const uint64_t b = sw128_desc(k_addr + (kk / 4) * KT * kSwizzleRow + off, 16);
@@ -696,7 +705,9 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[KT / 4], const float (&s)[K
   }
 }
 
-template <int D, int KT, int STAGES>
+// D: the columns of the shared-memory rows (a multiple of 64); DK <= D: the head dim, the
+// columns of the rows in memory (D = 128, DK = 112 for kimi-k2; DK = D otherwise).
+template <int D, int KT, int STAGES, int DK>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     flash_attention_tma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
@@ -704,6 +715,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   using L = TmaLayout<D, KT, STAGES>;
   constexpr int kChunks = D / 64;
   static_assert(D % 64 == 0 && KT % 16 == 0 && (KT == 64 || KT == 128), "tile shape");
+  static_assert(DK % 16 == 0 && DK <= D && DK > D - 64, "head dim");
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -785,7 +797,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       {
         float s[KT / 2];
         hopper::mbar_wait(k_full, 0);
-        issue_qk<D, KT>(s, q_addr, k_addr);
+        issue_qk<DK, KT>(s, q_addr, k_addr);
         wgmma_wait<0>();
         fence_regs(s);
         if (lane == 0) hopper::mbar_arrive(k_empty);
@@ -796,7 +808,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         const int st = i % STAGES, sp = (i - 1) % STAGES;
         float s[KT / 2];
         hopper::mbar_wait(k_full + st, (i / STAGES) & 1);
-        issue_qk<D, KT>(s, q_addr, k_addr + st * L::kv_bytes);
+        issue_qk<DK, KT>(s, q_addr, k_addr + st * L::kv_bytes);
         hopper::mbar_wait(v_full + sp, ((i - 1) / STAGES) & 1);
         issue_pv<D, KT>(o, p, v_addr + sp * L::kv_bytes);
         wgmma_wait<1>();  // Q K^T of tile i is done; P V of tile i - 1 may still run
@@ -852,7 +864,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
-template <int D>
+template <int D, int DK = D>
 int launch_tma(const Args& args, cudaStream_t stream) {
   constexpr int KT = TmaTile<D>::KT, STAGES = TmaTile<D>::STAGES;
   using L = TmaLayout<D, KT, STAGES>;
@@ -870,11 +882,13 @@ int launch_tma(const Args& args, cudaStream_t stream) {
   a.scale_log2 = args.scale * 1.4426950408889634f;
   if (a.n_qtiles > 65535 || B * KV > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
 
-  const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
-  const cuuint64_t q_strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)(H * D * 2), (cuuint64_t)(Sq * H * D * 2)};
+  // the rows' real DK columns: a box's columns past DK are filled with zeros on loads and
+  // clipped on the O store
+  const cuuint64_t q_dims[4] = {(cuuint64_t)DK, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t q_strides[3] = {(cuuint64_t)DK * 2, (cuuint64_t)(H * DK * 2), (cuuint64_t)(Sq * H * DK * 2)};
   const cuuint32_t q_box[4] = {64, (cuuint32_t)a.G, (cuuint32_t)a.P, 1};
-  const cuuint64_t k_dims[4] = {(cuuint64_t)D, (cuuint64_t)KV, (cuuint64_t)Sk, (cuuint64_t)B};
-  const cuuint64_t k_strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)(KV * D * 2), (cuuint64_t)(Sk * KV * D * 2)};
+  const cuuint64_t k_dims[4] = {(cuuint64_t)DK, (cuuint64_t)KV, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t k_strides[3] = {(cuuint64_t)DK * 2, (cuuint64_t)(KV * DK * 2), (cuuint64_t)(Sk * KV * DK * 2)};
   const cuuint32_t k_box[4] = {64, 1, (cuuint32_t)KT, 1};
   CUtensorMap q_map, k_map, v_map, o_map;
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -885,7 +899,7 @@ int launch_tma(const Args& args, cudaStream_t stream) {
   if (!err) err = hopper::encode_tiled(&v_map, bf16, 4, args.v, k_dims, k_strides, k_box, sw);
   if (err) return err;
 
-  auto kernel = flash_attention_tma_kernel<D, KT, STAGES>;
+  auto kernel = flash_attention_tma_kernel<D, KT, STAGES, DK>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned int)(B * KV), (unsigned int)a.n_qtiles);
@@ -894,12 +908,13 @@ int launch_tma(const Args& args, cudaStream_t stream) {
 }
 
 // D = 16 and 32 stay on mma.sync (their 32- and 64-byte rows would need swizzle modes of
-// their own); the served head dims take the wgmma + TMA body.
+// their own); the served head dims take the wgmma + TMA body, D = 112 in the D = 128 layout.
 int launch_bf16(const Args& a, long long D, cudaStream_t stream) {
   switch (D) {
     case 16: return launch_mma<16, 64>(a, stream);
     case 32: return launch_mma<32, 64>(a, stream);
     case 64: return launch_tma<64>(a, stream);
+    case kHeadDim112: return launch_tma<128, kHeadDim112>(a, stream);
     case 128: return launch_tma<128>(a, stream);
     case 256: return launch_tma<256>(a, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -923,6 +938,7 @@ int launch_f32(const Args& a, long long D, cudaStream_t stream) {
     case 16: return launch_fma<16, 64>(a, stream);
     case 32: return launch_fma<32, 64>(a, stream);
     case 64: return launch_fma<64, 64>(a, stream);
+    case kHeadDim112: return launch_fma<kHeadDim112, 64>(a, stream);
     case 128: return launch_fma<128, 64>(a, stream);
     case 256: return launch_fma<256, 32>(a, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -933,7 +949,7 @@ int launch_f32(const Args& a, long long D, cudaStream_t stream) {
 
 // Launches the attention on `stream` and returns cudaGetLastError() (0 on success).
 // q, k, v, o are contiguous device pointers of the shapes above; dtype 0 is float32, 1 is
-// bfloat16 (o has q's dtype).  The caller checks shapes, dtypes, D in {16, 32, 64, 128, 256},
+// bfloat16 (o has q's dtype).  The caller checks shapes, dtypes, D in {16, 32, 64, 112, 128, 256},
 // 1 <= G = H / KV <= 64, that q, k, v, o start on 16-byte boundaries (TMA's alignment) and
 // that the positions fit in 32-bit TMA coordinates.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, long long B,

@@ -5,7 +5,8 @@ On CUDA tensors it launches ``flash_attention_launch`` of
 ``csrc/flash_attention.cu`` on the current stream, or raises.  The kernel runs
 one block per (batch, kv head, q tile), the G query heads of a kv head as
 rows of the tile.  bfloat16 at D in :data:`TMA_HEAD_DIMS` (the served models'
-128 and 256) runs a warp-specialised body: one producer warp loads Q, K and V
+64, 112, 128 and 256; D = 112 in the D = 128 body, with the tensor maps' rows
+112 columns long, so TMA zero-fills and clips the last 16) runs a warp-specialised body: one producer warp loads Q, K and V
 by TMA (tensor maps encoded at each launch) into a ring of stages, and two
 consumer warpgroups run ``wgmma`` products and the online softmax, with the
 next tile's Q K^T issued before the current tile's softmax.  bfloat16 at D =
@@ -42,13 +43,13 @@ from repro_torch.kernels.flash_attention import ref
 launches = 0
 
 #: Head dims the kernel is built for.
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: bfloat16 head dims of the wgmma + TMA body (the others take mma.sync tiles).
-TMA_HEAD_DIMS = (64, 128, 256)
+TMA_HEAD_DIMS = (64, 112, 128, 256)
 #: Query rows of a TMA block: 128 // G positions x G heads.
 TMA_ROWS = 128
 #: Keys of a kv tile of the TMA body by head dim (``TmaTile`` in the source).
-TMA_KV_TILE = {64: 128, 128: 128, 256: 64}
+TMA_KV_TILE = {64: 128, 112: 128, 128: 128, 256: 64}
 #: Largest TMA coordinate (a signed 32-bit int) and grid rows of q tiles.
 TMA_COORD_MAX, QTILES_MAX = 2**31 - 1, 65535
 #: Largest G = H / KV (the query heads of a kv head share a block's rows), ``kMaxGroup``.

@@ -6,9 +6,16 @@ names, shapes and dtypes::
     {"embed.tokens": (V_pad, d), "unembed": (d, V_pad), "final_norm.scale": (d,),
      "layers": [{"norm1.scale": ..., "attn.wq": (d, H, Dh), ...}, ...]}
 
+(an encoder-decoder adds ``"encoder"``, a second list of layers, and
+``encoder_norm.*`` at the top level: :data:`LAYER_LISTS`).
+
 :class:`ParamBuilder` draws each dense weight from a truncated normal in
-[-2, 2] times ``std = 1 / sqrt(fan_in)`` (or a given scale) from an explicit
-``torch.Generator`` on the target device.  The numbers differ from
+[-2, 2] times ``std = 1 / sqrt(fan_in)`` (or a given scale; ``fan_in`` is
+``shape[0]``, the number of experts for an expert weight, as in the JAX
+package) from an explicit ``torch.Generator`` on the target device, in
+slices of at most :data:`DRAW_ELEMENTS` elements along the first axis, so
+that the float32 transients of a draw stay small beside the weight (one
+expert weight of kimi-k2 is 5.6 G elements).  The numbers differ from
 ``jax.random``'s for the same seed; :func:`from_jax` carries the JAX
 package's own init across instead, for the tests that compare the two, and
 :func:`state_from_jax` the whole training state a checkpoint holds
@@ -23,6 +30,10 @@ import numpy as np
 import torch
 
 _ERF_SQRT2 = math.erf(math.sqrt(2.0))  # 2 * Phi(2) - 1: the [-2, 2] cut of a unit normal
+#: The parameter dict's lists of per-layer dicts (``"encoder"``: enc-dec only).
+LAYER_LISTS = ("layers", "encoder")
+#: Most elements one draw of :meth:`ParamBuilder.dense` makes at a time (256 MB of float32).
+DRAW_ELEMENTS = 1 << 26
 
 
 def truncated_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -45,7 +56,13 @@ class ParamBuilder:
 
     def dense(self, name: str, shape: tuple[int, ...], scale: float | None = None):
         std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        self.params[name] = (truncated_normal(shape, self.generator, self.device) * std).to(self.dtype)
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        if self.device.type != "meta":
+            rows = max(1, DRAW_ELEMENTS // max(1, math.prod(shape[1:])))
+            for i in range(0, shape[0], rows):
+                n = min(rows, shape[0] - i)
+                out[i:i + n] = truncated_normal((n, *shape[1:]), self.generator, self.device).mul_(std)
+        self.params[name] = out
         return self
 
     def zeros(self, name: str, shape: tuple[int, ...], dtype=None):
@@ -98,12 +115,16 @@ def from_jax(cfg, params_np: dict, device, *, dtype: torch.dtype | None = None) 
             out[name] = t.to(device)
         return out
 
-    layers = params_np["layers"]
-    if len(layers) != len(want["layers"]):
-        raise ValueError(f"{len(layers)} layers, expected {len(want['layers'])}")
-    top = {k: v for k, v in params_np.items() if k != "layers"}
-    out = carry(top, {k: v for k, v in want.items() if k != "layers"}, "")
-    out["layers"] = [carry(p, w, f"layers[{i}].") for i, (p, w) in enumerate(zip(layers, want["layers"]))]
+    lists = [name for name in LAYER_LISTS if name in want]
+    for name in LAYER_LISTS:
+        got, spec = params_np.get(name), want.get(name)
+        if (got is None) != (spec is None) or (spec is not None and len(got) != len(spec)):
+            have = "no" if got is None else len(got)
+            raise ValueError(f"{have} {name}, expected {'none' if spec is None else len(spec)}")
+    top = {k: v for k, v in params_np.items() if k not in lists}
+    out = carry(top, {k: v for k, v in want.items() if k not in lists}, "")
+    for name in lists:
+        out[name] = [carry(p, w, f"{name}[{i}].") for i, (p, w) in enumerate(zip(params_np[name], want[name]))]
     return out
 
 

@@ -56,9 +56,10 @@ def test_small_cases_cover_what_the_kernels_take(smoke):
     from repro_torch.kernels.flash_attention import kernel as flash
 
     cases = smoke.ATTN_CASES
-    assert {c[4] for c in cases} >= {1, 2, 4, 16}  # G
+    assert {c[4] for c in cases} >= {1, 2, 4, 6, 7, 8, 9, 12, 16}  # G, the served models' among them
     assert any(flash.TMA_ROWS % c[4] for c in cases)  # a G that divides no tile (H = 6, KV = 2)
     assert {c[5] for c in cases} >= set(flash.HEAD_DIMS)  # every D
+    assert any(c[5] == 112 and c[4] == 8 and c[6] and c[1] % 64 for c in cases)  # kimi-k2's D and G, causal, ragged
     assert any(not c[6] for c in cases) and any(c[8] > 0 for c in cases)  # bidirectional, q_offset
     assert any(c[2] > c[1] and c[8] > 0 for c in cases)  # Sk > Sq with q_offset
     assert any(c[7] == 64 for c in cases) and any(0 < c[7] < c[2] for c in cases)  # window == tile, < S
@@ -72,6 +73,47 @@ def test_small_cases_cover_what_the_kernels_take(smoke):
     assert any(s % 64 and w % 32 for s, w in rglru_tma)  # S off the 64-step chunk, W off 32 channels
     assert any(s >= 4096 for s, _ in rglru_tma)
     assert any(w % 4 for _, _, w in smoke.RGLRU_CASES)  # and the per-channel body
+
+
+def test_served_models_and_their_launches(smoke):
+    """Phase 11 serves every registered architecture; each one's expected flash /
+    scan launches per prefill follow from its layer kinds (an enc-dec's encoder
+    layers too), with the MoE models cut to MODEL_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import PORTED_ARCHS, get_config
+    from repro_torch.models import transformer as T
+
+    assert {arch for arch, _ in smoke.MODELS} == set(PORTED_ARCHS)
+    assert set(smoke.MODEL_LAYERS) == {a for a in PORTED_ARCHS if get_config(a).family == "moe"}
+    for arch, expected in smoke.MODELS:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=smoke.MODEL_LAYERS.get(arch, cfg.n_layers))
+        kinds = T.layer_kinds(cfg)
+        flash = sum(kinds.count(k) for k in ("dense", "attn", "moe", "decoder")) + cfg.encoder_layers
+        want = {"flash_attention": flash, "rglru_scan": kinds.count("rec"), "ssm_scan": kinds.count("mamba")}
+        assert expected == {k: v for k, v in want.items() if v}, arch
+
+
+def test_attention_body_names_the_kernels_body(smoke):
+    meta = dict(device="meta")
+    assert smoke.attention_body(torch.empty((1, 8, 64, 112), dtype=torch.bfloat16, **meta)).startswith(
+        "wgmma+tma D=112 in the D=128 layout")
+    assert smoke.attention_body(torch.empty((1, 8, 4, 128), dtype=torch.bfloat16, **meta)) == "wgmma+tma D=128"
+    assert smoke.attention_body(torch.empty((1, 8, 4, 16), dtype=torch.bfloat16, **meta)) == "mma.sync D=16"
+    assert smoke.attention_body(torch.empty((1, 8, 4, 112), dtype=torch.float32, **meta)) == "fma D=112"
+
+
+def test_model_batch_carries_each_familys_inputs(smoke):
+    from repro_torch.configs import get_smoke_config
+
+    whisper, vlm = get_smoke_config("whisper-large-v3"), get_smoke_config("internvl2-1b")
+    b = smoke.model_batch(whisper, "cpu", batch=2, prompt=10)
+    assert tuple(b["frames"].shape) == (2, whisper.encoder_positions, whisper.d_model)
+    b = smoke.model_batch(vlm, "cpu", batch=2, prompt=10)
+    assert tuple(b["vision_embeds"].shape) == (2, vlm.vision_tokens, vlm.d_model)
+    assert b["vision_mask"].sum(dim=1).tolist() == [vlm.vision_tokens] * 2 and bool(b["vision_mask"][:, 0].all())
+    assert set(smoke.model_batch(get_smoke_config("glm4-9b"), "cpu", prompt=4)) == {"tokens"}
 
 
 SASS_EXCERPT = """

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch import obs
+from repro_torch.configs import PORTED_ARCHS
 from repro_torch.core import HOUR, SimParams, catalog, get_instance, step_trace, synthetic_trace
 from repro_torch.core.schemes import Scheme
 from repro_torch.engine import ALL_SCHEMES, BID_LIMITED_SCHEMES, COMPARED, Scenario, TorchEngine
@@ -364,22 +365,28 @@ def test_model_wrappers_reject_bad_inputs(cuda):
         rglru.rglru_scan(C.transpose(1, 2), C.transpose(1, 2))
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "recurrentgemma-9b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_smoke_models_on_the_card_match_their_plain_path(cuda, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as T
 
     cfg = get_smoke_config(arch)
     params = T.init_params(cfg, seed=0)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator(device=cuda).manual_seed(3),
-                           device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device=cuda)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.encoder_positions, cfg.d_model), generator=gen, device=cuda)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn((2, cfg.vision_tokens, cfg.d_model), generator=gen, device=cuda)
+        batch["vision_mask"] = (torch.arange(24, device=cuda) < cfg.vision_tokens).expand(2, 24)
     counts = {m: m.launches for m in (flash, rglru, ssm)}
-    logits, cache = T.prefill(cfg, params, {"tokens": tokens}, 32, q_block=8, kv_block=8)
+    logits, cache = T.prefill(cfg, params, batch, 32, q_block=8, kv_block=8)
     kinds = T.layer_kinds(cfg)
-    assert flash.launches - counts[flash] == kinds.count("dense") + kinds.count("attn")
+    attention = sum(kinds.count(k) for k in ("dense", "attn", "moe", "decoder")) + cfg.encoder_layers
+    assert flash.launches - counts[flash] == attention
     assert rglru.launches - counts[rglru] == kinds.count("rec")
     assert ssm.launches - counts[ssm] == kinds.count("mamba")
-    plain, _ = T.prefill(cfg, params, {"tokens": tokens}, 32, q_block=8, kv_block=8, impl="plain")
+    plain, _ = T.prefill(cfg, params, batch, 32, q_block=8, kv_block=8, impl="plain")
     close(logits, plain, 2e-2)
     step, _ = T.decode_step(cfg, params, logits[:, -1].argmax(-1, keepdim=True), cache)
     assert torch.isfinite(step.float()).all()

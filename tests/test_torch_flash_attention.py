@@ -34,6 +34,14 @@ SHAPES = [
     (1, 512, 2, 2, 64, True, 128),  # sliding window
     (1, 128, 2, 2, 64, True, 64),  # window == block
 ]
+#: Head dims and groups of the served models that the JAX tests' shapes do not cover
+SERVED_SHAPES = [
+    (1, 192, 1, 8, 112, True, 0),  # kimi-k2: D = 112, G = 8
+    (1, 128, 2, 4, 112, False, 0),  # D = 112 bidirectional
+    (1, 128, 2, 9, 128, True, 0),  # starcoder2-7b: G = 9
+    (1, 128, 1, 12, 128, True, 0),  # starcoder2-3b: G = 12
+    (1, 128, 2, 7, 64, True, 0),  # internvl2-1b: G = 7
+]
 DTYPES = {"float32": (np.float32, torch.float32, 2e-6), "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, 2e-2)}
 
 
@@ -63,7 +71,7 @@ def as_f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "b{}s{}kv{}g{}d{}c{}w{}".format(*map(int, s)))
+@pytest.mark.parametrize("shape", SHAPES + SERVED_SHAPES, ids=lambda s: "b{}s{}kv{}g{}d{}c{}w{}".format(*map(int, s)))
 def test_port_matches_tpu_kernel_and_oracle(shape, dtype):
     b, s, kv, g, d, causal, window = shape
     np_dtype, torch_dtype, tol = DTYPES[dtype]
@@ -172,3 +180,20 @@ def test_tma_checks_refuse_what_a_tensor_map_cannot_take():
                          torch.empty((1, 16, 1, 64), **meta))
     with pytest.raises(ValueError, match="32-bit"):
         kernel.check_tma(q, k, k, q_offset=2**31)
+    q112, k112 = torch.zeros((1, 16, 8, 112), **bf), torch.zeros((1, 16, 1, 112), **bf)
+    kernel.check_tma(q112, k112, k112)  # D = 112: rows of 224 bytes, 14 units of 16
+
+
+def test_head_dims_cover_every_registered_config():
+    """Every attention of every registered model (full and smoke config) takes a
+    head dim the kernel is built for and a group within its rows."""
+    from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke_config
+
+    for arch in PORTED_ARCHS:
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            if cfg.attention_free:
+                continue
+            assert cfg.d_head in kernel.HEAD_DIMS, (arch, cfg.d_head)
+            assert cfg.n_heads % cfg.n_kv_heads == 0 and cfg.n_heads // cfg.n_kv_heads <= kernel.ROWS, arch
+    assert set(kernel.TMA_HEAD_DIMS) <= set(kernel.HEAD_DIMS) and set(kernel.TMA_KV_TILE) == set(kernel.TMA_HEAD_DIMS)
+    assert 112 in kernel.TMA_HEAD_DIMS

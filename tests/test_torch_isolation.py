@@ -51,6 +51,15 @@ def test_every_module_is_found():
         "repro_torch.configs.falcon_mamba_7b",
         "repro_torch.configs.glm4_9b",
         "repro_torch.configs.recurrentgemma_9b",
+        "repro_torch.configs.arctic_480b",
+        "repro_torch.configs.internlm2_20b",
+        "repro_torch.configs.internvl2_1b",
+        "repro_torch.configs.kimi_k2_1t_a32b",
+        "repro_torch.configs.shapes",
+        "repro_torch.configs.starcoder2_3b",
+        "repro_torch.configs.starcoder2_7b",
+        "repro_torch.configs.whisper_large_v3",
+        "repro_torch.models.moe",
         "repro_torch.models.config",
         "repro_torch.models.layers",
         "repro_torch.models.params",
