@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models and train.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models, train, and run the distribution substrate as four ranks.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -144,13 +144,42 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
    restored state within half a quantization step per block of the saved
    one.  Prints one ``{"training": ...}`` line.
-16. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+16. The distribution substrate, with four ranks of one gloo process group as
+   four processes on the one card (``repro_torch.parallel.ranks.run_ranks``;
+   the kernels are built before any rank starts).  Error-feedback int8
+   gradient compression of phase 14's model (a random bf16 gradient tree from
+   a seed, 3 steps carrying the residual): card == CPU bit for bit on the sent
+   gradients and residuals of ``COMPRESS_SAMPLE``'s leaves, the invariant
+   sent + new residual == gradient + old residual on every leaf, and the time
+   of a call.  Sequence-parallel decode of internlm2-20b (``SP_*``: 8 of its 48
+   layers at its published widths, one request, a cache of 32,768 slots, 8,192
+   a rank): a flash-attention prefill of ``SP_PROMPT`` tokens, then 8 decode
+   steps, on a 1 x 4 (data, model) mesh with ``kv_seq`` on ``model``, against
+   the same model's single-process decode on the card (run first, its logits
+   and layer 0's cache kept on the host; its layer-0 prefill flash attention at
+   the full 24,584 tokens held against ``naive_attention`` within
+   ``ATTN_TOL``): the ranks' logits equal each other and lie within
+   ``LOGITS_TOL`` of the single-process ones; the ranks' layer-0 cache slices
+   side by side equal the single-process cache bit for bit; layer 0's merged
+   attention at every step lies within ``SP_MERGE_TOL`` of the plain decode
+   attention over that cache, and two broken merges (alpha left out, rank 0's
+   partial dropped) miss that bound; the prefill's flash launches are counted
+   in each rank.  Expert-parallel MoE: arctic-480b's MoE block at its
+   published widths (128 experts, 32 a rank; the parent's weights reach the
+   ranks through CUDA IPC) on 2 x 4096 tokens against the single-process
+   ``apply_moe`` (run first, its output kept on the host): every element of y
+   within ``EP_ULPS`` bf16 ulp, the load-balance loss within ``EP_LB_RTOL``,
+   the dropped assignments equal.  Each rank also times gloo's ``all_reduce``
+   at its path's sizes.  Prints one ``{"parallel": ...}`` line with the
+   times, the cuts and the tolerances.
+17. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
    five-scheme study of phase 4, the six-scheme study of phase 5 and the
-   contended studies of phase 6).
-17. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   contended studies of phase 6; the attention row's: serving, training and
+   the SP decode's prefills in the ranks of phase 16).
+18. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2175,6 +2204,490 @@ def codec_row(measured, launches) -> dict:
             "leaves_checked": measured["leaves_checked"], "bf16_leaf": measured["bf16_leaf"]}
 
 
+# ---------------------------------------------------------------------------
+# The parallel phase: four ranks on the one card (gloo), compression, SP, EP
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 4
+#: Gradient compression: the training phase's model (glm4-9b, 4 of 40 layers), a
+#: random bf16 gradient tree from a seed, steps that carry the residual, and the
+#: leaves also compressed on the CPU (every block of each, bit for bit).
+COMPRESS_STEPS = 3
+COMPRESS_SAMPLE = (("final_norm.scale",), ("layers", 0, "norm1.scale"), ("layers", 1, "attn.wk"),
+                   ("layers", 2, "attn.wq"), ("layers", 3, "mlp.wo"))
+#: SP decode: internlm2-20b at its published attention widths (48 q heads, 8 KV, D 128)
+#: with 8 of its 48 layers and one request (four copies of 48 layers do not fit the
+#: card: each rank holds the whole model), a cache of decode_32k's 32,768 slots,
+#: 8,192 a rank; the prompt fills three ranks' slices and 8 slots of the fourth, and
+#: 8 decode steps (teacher-forced from the same seeded tokens) append into the fourth.
+SP_ARCH, SP_LAYERS, SP_BATCH, SP_CACHE, SP_STEPS = "internlm2-20b", 8, 1, 32768, 8
+SP_PROMPT = 3 * SP_CACHE // PARALLEL_RANKS + 8
+#: EP MoE: arctic-480b's MoE block at its published widths (128 experts, 32 a rank,
+#: top-2, capacity factor 1.25: some assignments drop) on 2 x 4096 tokens.
+EP_ARCH, EP_BATCH, EP_TOKENS, EP_REPS = "arctic-480b", 2, 4096, 3
+#: The phase's tolerances.  Compression: bit for bit against the CPU; the
+#: error-feedback invariant within one bf16 ulp of what was sent (the transform
+#: rounds the float32 dequantized gradient to the leaf's dtype; the residual keeps
+#: the float32 error).  SP decode: the logits against the single-process decode on
+#: the card within LOGITS_TOL of their scale (both bf16 models; the SP merge sums
+#: four float32 partial softmaxes).  The logits barely see the merge (with random
+#: weights attention over 24k keys is near uniform and adds little to the residual
+#: stream), so layer 0's merged attention is held directly: max |sp - plain| <=
+#: SP_MERGE_TOL * max |plain| over the 8 steps, plain the port's plain decode
+#: attention over the whole cache (both round a float32 result to bf16 once, so
+#: they differ by at most one bf16 ulp, 2^-8 of an element).  The prefill's flash
+#: attention at layer 0 against naive_attention within ATTN_TOL, SP_CHUNK queries
+#: at a time.  EP MoE: every element of y within EP_ULPS bf16 ulp of apply_moe's
+#: (a token's two experts may sit on two ranks, whose float32 sum rounds once to
+#: bf16 as the dense layer's add does, unless it was inexact in float32), the
+#: load-balance loss within EP_LB_RTOL, the dropped assignments equal in number.
+EP_ULPS, EP_LB_RTOL = 1, 1e-5
+SP_MERGE_TOL, SP_CHUNK = 1e-2, 512
+#: Broken merges that the SP merge check must catch.
+SP_FAULTS = ("alpha_left_out", "rank0_dropped")
+
+
+def parallel_cuts() -> dict:
+    """What the parallel phase cuts from its models' published sizes."""
+    return {
+        "compression": {"model": TRAIN_ARCH, "layers": TRAIN_LAYERS, "of_layers": 40},
+        "sp_decode": {"model": SP_ARCH, "layers": SP_LAYERS, "of_layers": 48, "batch": SP_BATCH,
+                      "prompt": SP_PROMPT, "cache": SP_CACHE, "decode_steps": SP_STEPS},
+        "ep_moe": {"model": EP_ARCH, "layers": "one MoE block", "of_layers": 35, "tokens": EP_BATCH * EP_TOKENS},
+    }
+
+
+def parallel_tolerances() -> dict:
+    return {"compression": "bit for bit vs the CPU; invariant within 1 bf16 ulp", "sp_decode_logits": LOGITS_TOL,
+            "sp_merge_of_scale": SP_MERGE_TOL, "sp_prefill_flash": ATTN_TOL["bfloat16"], "ep_moe_y_bf16_ulps": EP_ULPS,
+            "ep_moe_load_balance_rtol": EP_LB_RTOL, "ep_moe_dropped": "equal"}
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in units of one bf16 ulp of ``want``, element by
+    element (an element of ``want`` that is 0 must be matched exactly)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(want)  # |want| = m * 2**exp, 0.5 <= m < 1: bf16 steps by 2**(exp - 8)
+    ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want), exp - 8))
+    err = (got - want).abs()
+    return float(torch.where(err == 0, 0.0, err / ulp).max()) if err.numel() else 0.0
+
+
+class Recorder:
+    """Wraps ``getattr(module, name)`` while in use and keeps ``(args, kwargs,
+    result)`` of every ``every``-th call, from the first, at most ``limit``."""
+
+    def __init__(self, module, name, every=1, limit=None):
+        self.module, self.name, self.every, self.limit = module, name, every, limit
+        self.calls, self.n = [], 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def _call(self, *args, **kwargs):
+        out = self.orig(*args, **kwargs)
+        if self.n % self.every == 0 and (self.limit is None or len(self.calls) < self.limit):
+            self.calls.append((args, kwargs, out))
+        self.n += 1
+        return out
+
+
+def sp_partials(q, k, v, pos: int, ranks: int):
+    """The float32 partials ``(m, l, o)`` of one decode query ``q (b, 1, H, D)``
+    against each of ``ranks`` equal slices of the cache ``k``, ``v``, as
+    :func:`repro_torch.parallel.sp_decode.sp_decode_attention_update` computes
+    them on each rank (slots past ``pos`` masked)."""
+    import torch
+
+    b, _, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, n_kv, h // n_kv, d).float()
+    parts = []
+    for kr, vr, start in zip(k.chunk(ranks, dim=1), v.chunk(ranks, dim=1), range(0, k.shape[1], k.shape[1] // ranks)):
+        s = torch.einsum("bkgd,bckd->bkgc", qg, kr.float()) * (1.0 / d ** 0.5)
+        mask = (start + torch.arange(kr.shape[1], device=q.device)) <= pos
+        s = torch.where(mask, s, -1e30)
+        m = s.amax(dim=-1)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1), torch.einsum("bkgc,bckd->bkgd", p, vr.float())))
+    return parts
+
+
+def merge_partials(parts, shape, dtype, fault=None):
+    """The flash-decoding merge of ``parts`` (:func:`sp_partials`), or a broken
+    one: ``alpha_left_out`` adds the partials unscaled, ``rank0_dropped``
+    merges all but rank 0's."""
+    import torch
+
+    if fault == "rank0_dropped":
+        parts = parts[1:]
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    alphas = [torch.ones_like(m) if fault == "alpha_left_out" else torch.exp(p[0] - m) for p in parts]
+    o = sum(p[2] * a[..., None] for p, a in zip(parts, alphas))
+    l_sum = sum(p[1] * a for p, a in zip(parts, alphas))
+    return (o / torch.clamp_min(l_sum, 1e-37)[..., None]).reshape(shape).to(dtype)
+
+
+def sp_merge_check(calls, k, v, ranks: int, device="cuda") -> dict:
+    """Layer 0's merged decode attention at each step (``calls``: ``(q, pos,
+    out)``) against the port's plain decode attention over the whole cache
+    ``k``, ``v``, and the two broken merges of :data:`SP_FAULTS` against the
+    same: each must miss the bound that the ranks' merge meets."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import decode_attention
+
+    k, v = k.to(device), v.to(device)
+    errs, scale = dict.fromkeys(("sp", *SP_FAULTS), 0.0), 0.0
+    for q, pos, out in calls:
+        q = q.to(device)
+        want = decode_attention(q, k, v, pos + 1).float()
+        scale = max(scale, float(want.abs().max()))
+        parts = sp_partials(q, k, v, pos, ranks)
+        got = {"sp": out.to(device), **{f: merge_partials(parts, q.shape, q.dtype, f) for f in SP_FAULTS}}
+        for name, x in got.items():
+            if not bool(torch.isfinite(x.float()).all()):
+                raise AssertionError(f"SP merge {name}: non-finite values")
+            errs[name] = max(errs[name], float((x.float() - want).abs().max()))
+    bound = SP_MERGE_TOL * scale
+    if not errs["sp"] <= bound:
+        raise AssertionError(f"SP decode: layer 0's merged attention {errs['sp']} from the plain one (bound {bound})")
+    for f in SP_FAULTS:
+        if not errs[f] > bound:
+            raise AssertionError(f"SP decode: the broken merge {f} ({errs[f]}) stays within the bound {bound}")
+    return {"max_abs_err": errs["sp"], "bound": bound, "scale": scale, "steps": len(calls),
+            "broken_merges": {f: errs[f] for f in SP_FAULTS}}
+
+
+def hold_flash_prefill(call) -> float:
+    """One layer's prefill flash attention (a recorded call) against the plain
+    ``naive_attention`` on the same q / k / v, ``SP_CHUNK`` queries at a time."""
+    from repro_torch.kernels.flash_attention.ref import naive_attention
+
+    (q, k, v), kw, out = call
+    if kw.get("q_offset", 0):
+        raise AssertionError("the SP prefill's flash attention starts at position 0")
+    err = 0.0
+    for i in range(0, q.shape[1], SP_CHUNK):
+        want = naive_attention(q[:, i:i + SP_CHUNK], k, v, causal=kw.get("causal", True), window=kw.get("window", 0),
+                               q_offset=i)
+        err = max(err, check_close(out[:, i:i + SP_CHUNK], want, ATTN_TOL["bfloat16"],
+                                   f"SP prefill flash attention, queries {i}..{i + SP_CHUNK}"))
+    return err
+
+
+def tree_at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (-0.0 differs from 0.0; NaNs compare by their bits)."""
+    import torch
+
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view[a.dtype]), b.view(view[b.dtype]))
+
+
+def ef_violation(sent, g, r_old, r_new) -> float:
+    """Largest breach of the error-feedback invariant sent + r_new == g + r_old,
+    as a multiple of its bound (one ulp of sent's dtype, plus float32 rounding of
+    the two sums): <= 1 holds."""
+    import torch
+
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 2.0 ** -23}[sent.dtype]
+    lhs = sent.float() + r_new
+    rhs = g.float() + r_old
+    bound = ulp * sent.float().abs() + 2.0 ** -22 * (lhs.abs() + rhs.abs()) + 1e-30
+    return float(((lhs - rhs).abs() / bound).max())
+
+
+def compression_phase(device) -> dict:
+    """Error-feedback int8 compression of a glm4-9b gradient tree on the card."""
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compress as C
+
+    shape_tree = T.abstract_params(train_cfg())
+    shapes, treedef = tree_lib.flatten(shape_tree)
+    gen = torch.Generator(device=device).manual_seed(11)
+    n_elements = sum(x.numel() for x in shapes)
+
+    def grads(step):
+        out = []
+        for x in shapes:
+            g = torch.randn(x.shape, generator=gen, device=device, dtype=torch.float32).mul_(1 + step)
+            out.append(g.to(x.dtype))
+        return treedef.unflatten(out)
+
+    def zeros(tree, dev):
+        leaves, tdef = tree_lib.flatten(tree)
+        return tdef.unflatten([torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in leaves])
+
+    sample = {"/".join(map(str, p)): p for p in COMPRESS_SAMPLE}
+    state = C.CompressionState(residual=zeros(shape_tree, device))
+    cpu_state = C.CompressionState(residual=zeros({k: tree_at(shape_tree, p) for k, p in sample.items()}, "cpu"))
+    worst, checked = 0.0, 0
+    for step in range(COMPRESS_STEPS):
+        g = grads(step)
+        r_old = state.residual
+        sent, state = C.compressed_grad_transform(g, state)
+        torch.cuda.synchronize()
+        for gl, rl, sl, nl in zip(*(tree_lib.leaves(t) for t in (g, r_old, sent, state.residual))):
+            worst = max(worst, ef_violation(sl, gl, rl, nl))
+        cpu_g = {k: tree_at(g, p).cpu() for k, p in sample.items()}
+        cpu_sent, cpu_state = C.compressed_grad_transform(cpu_g, cpu_state)
+        for k, p in sample.items():
+            for what, card_t, cpu_t in (("sent", tree_at(sent, p), cpu_sent[k]),
+                                        ("residual", tree_at(state.residual, p), cpu_state.residual[k])):
+                if not same_bits(card_t.cpu(), cpu_t):
+                    raise AssertionError(f"compression step {step} {k} {what}: the card differs from the CPU")
+                checked += 1
+        del g, r_old, sent
+    if worst > 1.0:
+        raise AssertionError(f"compression: the error-feedback invariant is off by {worst} x its bound")
+    g = grads(COMPRESS_STEPS)
+    ms = time_ms(lambda: C.compressed_grad_transform(g, state), reps=3)
+    print(f"compression {TRAIN_ARCH} ({TRAIN_LAYERS} layers, {len(shapes)} leaves, {n_elements} elements): "
+          f"card == CPU bit for bit on {len(sample)} leaves x {COMPRESS_STEPS} steps (sent and residual); "
+          f"error-feedback invariant over {COMPRESS_STEPS} steps at {worst:.3f} of its bound; {ms:.3f} ms a call",
+          flush=True)
+    del g, state
+    torch.cuda.empty_cache()
+    return {"leaves": len(shapes), "elements": n_elements, "steps": COMPRESS_STEPS, "leaves_vs_cpu": len(sample),
+            "tensors_vs_cpu": checked, "invariant_worst_of_bound": worst, "ms": ms}
+
+
+def sp_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SP_ARCH), n_layers=SP_LAYERS)
+
+
+def sp_tokens(device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    return torch.randint(0, sp_cfg().vocab_size, (SP_BATCH, SP_PROMPT + SP_STEPS), generator=gen, device=device)
+
+
+def sp_decode_run(tokens, mesh=None) -> dict:
+    """Prefill ``SP_PROMPT`` tokens into a cache of ``SP_CACHE`` slots, then
+    ``SP_STEPS`` decode steps fed the following tokens; on a mesh, with
+    ``kv_seq`` on ``model``.  The logits of every step (host, float32), layer
+    0's cache (host), the prefill's flash-attention launches and the times.
+    In one process, also layer 0's prefill flash attention held against the
+    plain version; on a mesh, layer 0's query, position and merged attention
+    at each step (``layer0``)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import sp_decode
+
+    cfg = sp_cfg()
+    params = T.init_params(cfg, seed=0, device=tokens.device)
+    ctx = contextlib.ExitStack()
+    if mesh is not None:
+        ctx.enter_context(S.use_compat_mesh(mesh))
+        ctx.enter_context(S.axis_rules({**S.DEFAULT_RULES, "kv_seq": "model"}))
+    with ctx:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.launches = 0
+        with Recorder(attn_ops, "flash_attention", limit=1 if mesh is None else 0) as prefill_calls:
+            t0 = time.perf_counter()
+            _, cache = T.prefill(cfg, params, {"tokens": tokens[:, :SP_PROMPT]}, SP_CACHE)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        launches = flash.launches
+        logits, step_ms = [], []
+        with Recorder(sp_decode, "sp_decode_attention_update", every=SP_LAYERS) as merges:
+            for i in range(SP_PROMPT, SP_PROMPT + SP_STEPS):
+                t0 = time.perf_counter()
+                out, cache = T.decode_step(cfg, params, tokens[:, i:i + 1], cache)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                logits.append(out.float().cpu())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run = {"logits": torch.cat(logits, dim=1), "flash_launches": launches, "prefill_s": prefill_s,
+               "ms_per_step": statistics.median(step_ms), "cache_slots": cache["layers"][0]["k"].shape[1],
+               "peak_memory_gb": peak_gb, "k0": cache["layers"][0]["k"].cpu(), "v0": cache["layers"][0]["v"].cpu()}
+        if mesh is None:
+            run["prefill_flash_err"] = hold_flash_prefill(prefill_calls.calls[0])
+        else:
+            run["layer0"] = [(a[0].cpu(), a[5], o[0].cpu()) for a, _, o in merges.calls]
+    return run
+
+
+def sp_rank(rank, tokens_path) -> dict:
+    """One rank of the SP decode: its own copy of the model (the same seed),
+    then gloo's ``all_reduce`` timed at the merge's two sizes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import sharding as S
+
+    mesh = S.make_compat_mesh((1, PARALLEL_RANKS), ("data", "model"), device_type="cuda")
+    tokens = torch.load(tokens_path).cuda()
+    out = sp_decode_run(tokens, mesh)
+    cfg = sp_cfg()
+    group = mesh.get_group("model")
+    m = torch.zeros((SP_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads), device="cuda")
+    lo = torch.zeros((*m.shape, cfg.d_head + 1), device="cuda")
+    out["all_reduce_ms"] = {
+        "max_m": time_ms(lambda: dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group), reps=20),
+        "sum_o_l": time_ms(lambda: dist.all_reduce(lo, group=group), reps=20),
+    }
+    out["all_reduce_bytes"] = {"max_m": m.numel() * 4, "sum_o_l": lo.numel() * 4}
+    return out
+
+
+def ep_rank(rank, params, x) -> dict:
+    """One rank of the EP MoE: the whole layer's weights from the parent (CUDA
+    IPC), of which ``apply_moe_ep`` takes this rank's 32 experts; then gloo's
+    ``all_reduce`` timed at the output's size (summed in float32)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe_ep as MEP
+    from repro_torch.parallel import sharding as S
+
+    cfg = get_config(EP_ARCH)
+    mesh = S.make_compat_mesh((1, PARALLEL_RANKS), ("data", "model"), device_type="cuda")
+    with S.use_compat_mesh(mesh):
+        y, aux = MEP.apply_moe_ep(cfg, params, "moe", x)
+        ms = time_ms(lambda: MEP.apply_moe_ep(cfg, params, "moe", x), reps=EP_REPS)
+    buf = torch.zeros(y.shape, device="cuda")
+    all_reduce_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.get_group("model")), reps=EP_REPS)
+    return {"y": y.cpu(), "load_balance_loss": float(aux["load_balance_loss"]),
+            "drop_frac": float(aux["drop_frac"]), "ms": ms, "all_reduce_ms": all_reduce_ms,
+            "all_reduce_bytes": buf.numel() * 4}
+
+
+def parallel_phase(device, card) -> dict:
+    """Phase 16: compression on the card, then SP decode and EP MoE as four ranks
+    of a gloo group on the one card, each against the single-process path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import ParamBuilder, model_dtype
+    from repro_torch.parallel.ranks import run_ranks
+
+    _build.load_library()  # built once, here: the ranks load it and never race an nvcc build
+    torch.cuda.empty_cache()
+    compression = compression_phase(device)
+
+    # -- SP decode: the single-process decode first, its logits kept on the host --
+    tokens = sp_tokens(device)
+    ref = sp_decode_run(tokens)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(tokens.cpu(), Path(tmp) / "tokens.pt")
+        t0 = time.perf_counter()
+        ranks = run_ranks(sp_rank, PARALLEL_RANKS, str(Path(tmp) / "tokens.pt"))
+        sp_wall_s = time.perf_counter() - t0
+    want = ref["logits"]
+    for r, out in enumerate(ranks):
+        if not torch.equal(out["logits"], ranks[0]["logits"]):
+            raise AssertionError(f"SP decode: rank {r}'s logits differ from rank 0's")
+        if out["flash_launches"] != SP_LAYERS or out["cache_slots"] != SP_CACHE // PARALLEL_RANKS:
+            raise AssertionError(f"SP decode rank {r}: {out['flash_launches']} flash launches, "
+                                 f"{out['cache_slots']} cache slots")
+        if len(out["layer0"]) != SP_STEPS or any(not torch.equal(o, a[2]) for (*_, o), a in
+                                                  zip(out["layer0"], ranks[0]["layer0"])):
+            raise AssertionError(f"SP decode rank {r}: layer 0's merged attention differs from rank 0's")
+    for name in ("k0", "v0"):  # the ranks' slices side by side are the single-process cache
+        if not same_bits(torch.cat([o[name] for o in ranks], dim=1), ref[name]):
+            raise AssertionError(f"SP decode: the ranks' layer-0 {name[0]} cache slices differ from the whole cache")
+    merge = sp_merge_check(ranks[0]["layer0"], ref["k0"], ref["v0"], PARALLEL_RANKS)
+    got = ranks[0]["logits"]
+    sp_err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or sp_err > LOGITS_TOL * (1 + float(want.abs().max())):
+        raise AssertionError(f"SP decode: logits {sp_err} from the single-process decode")
+    sp = {"logits_max_abs_err": sp_err, "logits_tol": LOGITS_TOL * (1 + float(want.abs().max())),
+          "merge": merge, "prefill_flash_max_abs_err": ref["prefill_flash_err"],
+          "prefill_flash_shape": [SP_BATCH, SP_PROMPT, sp_cfg().n_heads, sp_cfg().d_head],
+          "ms_per_step": max(o["ms_per_step"] for o in ranks), "single_process_ms_per_step": ref["ms_per_step"],
+          "prefill_s": max(o["prefill_s"] for o in ranks), "single_process_prefill_s": ref["prefill_s"],
+          "flash_launches": sum(o["flash_launches"] for o in ranks), "wall_s": sp_wall_s,
+          "all_reduce_ms": {k: max(o["all_reduce_ms"][k] for o in ranks) for k in ranks[0]["all_reduce_ms"]},
+          "all_reduce_bytes": ranks[0]["all_reduce_bytes"],
+          "rank_peak_memory_gb": max(o["peak_memory_gb"] for o in ranks),
+          "single_process_peak_memory_gb": ref["peak_memory_gb"]}
+    print(f"SP decode {SP_ARCH} ({SP_LAYERS} layers, prompt {SP_PROMPT}, cache {SP_CACHE}, {PARALLEL_RANKS} ranks "
+          f"x {SP_CACHE // PARALLEL_RANKS} slots): ranks agree bit for bit, their cache slices are the whole "
+          f"cache, layer 0's merge within {merge['max_abs_err']:.4g} of the plain attention (bound "
+          f"{merge['bound']:.4g}; broken merges {merge['broken_merges']}), prefill flash attention within "
+          f"{ref['prefill_flash_err']:.4g} of naive_attention, logits within {sp_err:.4g} of the single-process "
+          f"decode; {sp['ms_per_step']:.2f} ms a step against {ref['ms_per_step']:.2f}", flush=True)
+    del tokens, ranks, ref
+
+    # -- EP MoE: the single-process layer first, its output kept on the host ------
+    cfg = get_config(EP_ARCH)
+    b = ParamBuilder(torch.Generator(device=device).manual_seed(3), device, model_dtype(cfg))
+    M.init_moe(b, "moe", cfg)
+    params = b.params
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((EP_BATCH, EP_TOKENS, cfg.d_model), generator=gen, device=device).to(model_dtype(cfg))
+    y_dense, aux_dense = M.apply_moe(cfg, params, "moe", x)
+    dense_ms = time_ms(lambda: M.apply_moe(cfg, params, "moe", x), reps=EP_REPS)
+    y_dense, lb_dense, drop_dense = y_dense.cpu(), float(aux_dense["load_balance_loss"]), float(aux_dense["drop_frac"])
+    del aux_dense
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(ep_rank, PARALLEL_RANKS, params, x)
+    ep_wall_s = time.perf_counter() - t0
+    assignments = EP_BATCH * EP_TOKENS * cfg.top_k
+    for r, out in enumerate(ranks):
+        if not torch.equal(out["y"], ranks[0]["y"]):
+            raise AssertionError(f"EP MoE: rank {r}'s output differs from rank 0's")
+        if round(out["drop_frac"] * assignments) != round(drop_dense * assignments):
+            raise AssertionError(f"EP MoE rank {r}: drop_frac {out['drop_frac']} against {drop_dense}")
+        if abs(out["load_balance_loss"] - lb_dense) > EP_LB_RTOL * abs(lb_dense):
+            raise AssertionError(f"EP MoE rank {r}: load_balance_loss {out['load_balance_loss']} against {lb_dense}")
+    y = ranks[0]["y"]
+    ep_err = float((y.float() - y_dense.float()).abs().max())
+    ep_ulps = bf16_ulps(y, y_dense)
+    if not bool(torch.isfinite(y.float()).all()) or not ep_ulps <= EP_ULPS:
+        raise AssertionError(f"EP MoE: output {ep_ulps} bf16 ulp ({ep_err}) from the single-process apply_moe")
+    ep = {"max_abs_err": ep_err, "max_bf16_ulps": ep_ulps, "same_bits": bool(torch.equal(y, y_dense)),
+          "drop_frac": ranks[0]["drop_frac"], "single_process_drop_frac": drop_dense,
+          "dropped": round(drop_dense * assignments), "assignments": assignments,
+          "load_balance_loss": ranks[0]["load_balance_loss"], "single_process_load_balance_loss": lb_dense,
+          "ms": max(o["ms"] for o in ranks), "single_process_ms": dense_ms, "wall_s": ep_wall_s,
+          "all_reduce_ms": max(o["all_reduce_ms"] for o in ranks), "all_reduce_bytes": ranks[0]["all_reduce_bytes"],
+          "experts_per_rank": cfg.n_experts // PARALLEL_RANKS}
+    print(f"EP MoE {EP_ARCH} ({cfg.n_experts} experts, {ep['experts_per_rank']} a rank, {EP_BATCH} x {EP_TOKENS} "
+          f"tokens): ranks agree bit for bit, y within {ep_ulps:g} bf16 ulp of apply_moe, dropped "
+          f"{ep['dropped']} of {assignments} on both; {ep['ms']:.2f} ms a call against {dense_ms:.2f}", flush=True)
+    del params, x, b, ranks
+    torch.cuda.empty_cache()
+    out = {"card": card, "ranks": PARALLEL_RANKS, "backend": "gloo", "compression": compression, "sp_decode": sp,
+           "ep_moe": ep, "cuts": parallel_cuts(), "tolerances": parallel_tolerances()}
+    print(json.dumps({"parallel": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2317,18 +2830,24 @@ def main() -> int:
     campaign = spot_campaign(device)
     print(json.dumps({"training": {"card": card, **training, "campaign": campaign, "small": small_train}}), flush=True)
 
-    # -- 16. the kernels line -------------------------------------------------
+    # -- 16. four ranks on the card: compression, SP decode, EP MoE ------------
+    parallel = parallel_phase(device, card)
+
+    # -- 17. the kernels line -------------------------------------------------
     rows = model_kernel_rows(found, small_errs)
     for row in rows:
         extra = campaign["launches"].get(row["name"], 0) + (
             TRAIN_STEPS * training["flash_attention_launches_per_step"] if row["name"] == "flash_attention" else 0)
-        if extra:
+        sp = parallel["sp_decode"]["flash_launches"] if row["name"] == "flash_attention" else 0
+        if extra or sp:
             row["launches_by_path"] = {"serving": row["launches"], "training": extra}
-            row["launches"] += extra
+            if sp:
+                row["launches_by_path"]["sp_decode_prefill"] = sp
+            row["launches"] += extra + sp
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
     print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
-    # -- 17. the result line ------------------------------------------------
+    # -- 18. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -27,7 +27,7 @@ class ModelConfig:
     dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    moe_impl: str = "dense"  # dense (annotation dispatch) | ep (shard_map, §Perf)
+    moe_impl: str = "dense"  # dense (apply_moe) | ep (expert parallelism over the model axis: moe_ep.py)
 
     # --- SSM (mamba-1) ---
     ssm_state: int = 0

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
+from repro_torch.parallel import sp_decode
+from repro_torch.parallel.sharding import current_rules
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -22,9 +24,9 @@ from repro_torch.models.params import ParamBuilder
 
 
 def init_norm(b: ParamBuilder, name: str, cfg: ModelConfig):
-    b.ones(f"{name}.scale", (cfg.d_model,))
+    b.ones(f"{name}.scale", (cfg.d_model,), ("embed",))
     if cfg.norm != "rmsnorm":
-        b.zeros(f"{name}.bias", (cfg.d_model,))
+        b.zeros(f"{name}.bias", (cfg.d_model,), ("embed",))
 
 
 def apply_norm(cfg: ModelConfig, params, name: str, x):
@@ -72,10 +74,10 @@ def apply_rope(x, cos, sin):
 
 def init_attention(b: ParamBuilder, name: str, cfg: ModelConfig):
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    b.dense(f"{name}.wq", (d, h, dh))
-    b.dense(f"{name}.wk", (d, kv, dh))
-    b.dense(f"{name}.wv", (d, kv, dh))
-    b.dense(f"{name}.wo", (h, dh, d))
+    b.dense(f"{name}.wq", (d, h, dh), ("fsdp", "heads", "head_dim"))
+    b.dense(f"{name}.wk", (d, kv, dh), ("fsdp", "kv_heads", "head_dim"))
+    b.dense(f"{name}.wv", (d, kv, dh), ("fsdp", "kv_heads", "head_dim"))
+    b.dense(f"{name}.wo", (h, dh, d), ("heads", "head_dim", "fsdp"))
 
 
 def project_heads(x, w):
@@ -119,9 +121,15 @@ def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, win
     (RoPE keys carry absolute positions, so the scores stay right after
     wrap-around).  The cache's k / v are updated in place (the JAX package
     returns new arrays); the returned dict holds the new ``len``.
+
+    Under a mesh whose rules put ``kv_seq`` on ``model`` (see
+    :func:`sp_cache_slice`) the cache is this rank's sequence slice (it also
+    holds ``"seq_len"``, the whole cache's ``S_c``: :func:`init_attention_cache`
+    makes it so) and the step runs the distributed flash-decoding of
+    :mod:`repro_torch.parallel.sp_decode`.
     """
     pos = cache["len"]
-    s_c = cache["k"].shape[1]
+    s_c = cache.get("seq_len", cache["k"].shape[1])
     circular = bool(window) and s_c <= window
     q = project_heads(x, params[f"{name}.wq"])
     k_new = project_heads(x, params[f"{name}.wk"])
@@ -129,6 +137,13 @@ def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, win
     if not cfg.learned_pos:
         cos, sin = rope_frequencies(cfg, torch.tensor([pos], device=x.device))
         q, k_new = apply_rope(q, cos, sin), apply_rope(k_new, cos, sin)
+    sequence_parallel = sp_cache_slice(s_c, window) is not None
+    if sequence_parallel != ("seq_len" in cache):
+        raise ValueError("the cache was not made under this mesh and these rules (init_cache / prefill make it)")
+    if sequence_parallel:
+        o, k_cache, v_cache = sp_decode.sp_decode_attention_update(q, k_new, v_new, cache["k"], cache["v"], pos)
+        out = merge_heads(o, params[f"{name}.wo"])
+        return out, {"k": k_cache, "v": v_cache, "len": pos + 1, "seq_len": s_c}
     write_at = pos % s_c if circular else pos
     cache["k"][:, write_at] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, write_at] = v_new[:, 0].to(cache["v"].dtype)
@@ -138,12 +153,54 @@ def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, win
     return out, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
 
 
-def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {
+def sp_cache_slice(s_c: int, window: int = 0) -> tuple[int, int] | None:
+    """This rank's positions ``[start, stop)`` of an attention cache of
+    ``s_c`` slots when decode runs sequence-parallel, else None: as in the JAX
+    package, when the cache is not circular, the rules put ``kv_seq`` on
+    ``model`` and the mesh's model axis divides ``s_c``."""
+    circular = bool(window) and s_c <= window
+    if circular or current_rules().get("kv_seq") != "model" or not sp_decode.sp_available(s_c):
+        return None
+    return sp_decode.sp_slice(s_c)
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device, *, window=0):
+    """An empty cache of ``max_len`` slots, or, when decode runs
+    sequence-parallel (:func:`sp_cache_slice`), this rank's slice of it with
+    ``"seq_len": max_len``."""
+    sl = sp_cache_slice(max_len, window)
+    shape = (batch, max_len if sl is None else sl[1] - sl[0], cfg.n_kv_heads, cfg.d_head)
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": 0,
+    }
+    if sl is not None:
+        cache["seq_len"] = max_len
+    return cache
+
+
+def fill_attention_cache(cache: dict, k, v) -> None:
+    """Writes a prompt's keys / values ``(B, S, KV, Dh)`` (positions ``[0,
+    S)``) into a cache that is not circular: its slots ``[0, S)``, or the
+    positions that fall in this rank's sequence slice."""
+    s = k.shape[1]
+    lo, n = 0, s
+    if "seq_len" in cache:
+        if s > cache["seq_len"]:
+            raise ValueError(f"a prompt of {s} tokens in a cache of {cache['seq_len']} slots")
+        lo = sp_decode.sp_slice(cache["seq_len"])[0]
+        n = max(0, min(s - lo, cache["k"].shape[1]))
+    cache["k"][:, :n] = k[:, lo:lo + n]
+    cache["v"][:, :n] = v[:, lo:lo + n]
+    cache["len"] = s
+
+
+def attention_cache_axes() -> dict:
+    return {
+        "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+        "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+        "len": (),
     }
 
 
@@ -155,9 +212,9 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, devi
 def init_mlp(b: ParamBuilder, name: str, cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.gated_mlp:
-        b.dense(f"{name}.wi_gate", (d, f))
-    b.dense(f"{name}.wi_up", (d, f))
-    b.dense(f"{name}.wo", (f, d))
+        b.dense(f"{name}.wi_gate", (d, f), ("fsdp", "mlp"))
+    b.dense(f"{name}.wi_up", (d, f), ("fsdp", "mlp"))
+    b.dense(f"{name}.wo", (f, d), ("mlp", "fsdp"))
 
 
 def _act(cfg: ModelConfig, x):
@@ -180,11 +237,11 @@ def init_embedding(b: ParamBuilder, cfg: ModelConfig):
     # the vocab is padded to a multiple of 128 as in the JAX package: logits
     # span the padded ids, and greedy sampling may pick one
     v = cfg.padded_vocab
-    b.dense("embed.tokens", (v, cfg.d_model), scale=1.0)
+    b.dense("embed.tokens", (v, cfg.d_model), ("vocab", "embed"), scale=1.0)
     if cfg.learned_pos:
-        b.dense("embed.positions", (cfg.max_position, cfg.d_model), scale=0.02)
+        b.dense("embed.positions", (cfg.max_position, cfg.d_model), (None, "embed"), scale=0.02)
     if not cfg.tie_embeddings:
-        b.dense("unembed", (cfg.d_model, v))
+        b.dense("unembed", (cfg.d_model, v), ("embed", "vocab"))
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens, position_offset=0):

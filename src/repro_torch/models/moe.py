@@ -50,11 +50,11 @@ def silu(x):
 
 def init_moe(b: ParamBuilder, name: str, cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    b.dense(f"{name}.router", (d, e), scale=0.02)
+    b.dense(f"{name}.router", (d, e), ("embed", None), scale=0.02)
     if cfg.gated_mlp:
-        b.dense(f"{name}.wi_gate", (e, d, f))
-    b.dense(f"{name}.wi_up", (e, d, f))
-    b.dense(f"{name}.wo", (e, f, d))
+        b.dense(f"{name}.wi_gate", (e, d, f), ("experts", "fsdp", "mlp"))
+    b.dense(f"{name}.wi_up", (e, d, f), ("experts", "fsdp", "mlp"))
+    b.dense(f"{name}.wo", (e, f, d), ("experts", "mlp", "fsdp"))
 
 
 def moe_capacity(cfg: ModelConfig, tokens_per_row: int) -> int:
@@ -77,32 +77,49 @@ def apply_moe(cfg: ModelConfig, params, name: str, x):
     """x ``(B, S, d)`` -> ``(out, aux)`` with aux ``{"load_balance_loss",
     "drop_frac", "top_e"}`` (float32 scalars; ``top_e (B, S, k)`` the chosen
     experts)."""
+    probs, top_w, top_e = route(cfg, params, name, x)
+    y, keep = run_experts(cfg, params, name, x, top_w, top_e, 0, cfg.n_experts)
+    lb_loss = load_balance_loss(cfg, probs, top_e)
+    drop_frac = 1.0 - keep.float().mean()
+    return y, {"load_balance_loss": lb_loss, "drop_frac": drop_frac, "top_e": top_e}
+
+
+def run_experts(cfg: ModelConfig, params, name: str, x, top_w, top_e, first: int, n: int):
+    """The experts ``first .. first + n - 1`` (the rows the expert weights in
+    ``params`` hold) on x ``(B, S, d)`` routed to ``top_e`` with weights
+    ``top_w`` ``(B, S, k)``.  Returns ``(y, keep)``: y ``(B, S, d)``, each
+    token's weighted outputs of these experts summed in ascending expert order
+    (0 for a token none of them takes), and keep ``(B, S * k)``, the
+    assignments they kept (assignment j of token t at ``t * k + j``).  An
+    assignment to another expert goes to an overflow bucket ``n``, which keeps
+    nothing; capacity positions count only these experts' assignments, so a
+    kept assignment is the one the whole layer keeps."""
     bsz, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     c = moe_capacity(cfg, s)
     tk = s * k
     dev = x.device
 
-    probs, top_w, top_e = route(cfg, params, name, x)
-
     # ---- position-in-expert via a stable sort (row-local) -------------------
-    eid = top_e.reshape(bsz, tk)
+    eid = top_e.reshape(bsz, tk) - first
+    owned = (eid >= 0) & (eid < n)
+    eid = torch.where(owned, eid, n)
     sort_idx = torch.argsort(eid, dim=1, stable=True)
     sorted_eid = torch.gather(eid, 1, sort_idx)
-    counts = torch.zeros((bsz, e), dtype=torch.int64, device=dev).scatter_add_(1, eid, torch.ones_like(eid))
+    counts = torch.zeros((bsz, n + 1), dtype=torch.int64, device=dev).scatter_add_(1, eid, torch.ones_like(eid))
     offsets = torch.cumsum(counts, dim=1) - counts  # exclusive
     pos_sorted = torch.arange(tk, device=dev)[None, :] - torch.gather(offsets, 1, sorted_eid)
     pos = torch.empty_like(pos_sorted).scatter_(1, sort_idx, pos_sorted)  # back in assignment order
-    keep = pos < c  # (B, S*k), assignment j of token t at t * k + j
+    keep = owned & (pos < c)
 
     # ---- dispatch: row (e * B + b) * C + pos of an expert-major buffer --------
     brow = torch.arange(bsz, device=dev)[:, None]
-    slot = (eid * bsz + brow) * c + torch.clamp_max(pos, c - 1)
-    spare = e * bsz * c
+    slot = (torch.clamp_max(eid, n - 1) * bsz + brow) * c + torch.clamp_max(pos, c - 1)
+    spare = n * bsz * c
     buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=dev)
     src = x.repeat_interleave(k, dim=1).reshape(-1, d)  # token t * k + j is token t
     buf[torch.where(keep, slot, spare).reshape(-1)] = src
-    buf = buf[:spare].view(e, bsz * c, d)
+    buf = buf[:spare].view(n, bsz * c, d)
 
     # ---- expert FFN (batched over the experts) ------------------------------
     up = torch.bmm(buf, params[f"{name}.wi_up"])
@@ -120,10 +137,16 @@ def apply_moe(cfg: ModelConfig, params, name: str, x):
     y = back[:, :, 0]
     for j in range(1, k):
         y = y + back[:, :, j]
+    return y, keep
 
-    # ---- aux ------------------------------------------------------------------
-    frac_tokens = counts.float() / tk
+
+def load_balance_loss(cfg: ModelConfig, probs, top_e):
+    """The GShard load-balance loss: ``E * mean_b sum_e (share of the row's
+    assignments to e) * (mean router probability of e)``."""
+    bsz, s, k = top_e.shape
+    eid = top_e.reshape(bsz, s * k)
+    counts = torch.zeros((bsz, cfg.n_experts), dtype=torch.int64, device=eid.device)
+    counts.scatter_add_(1, eid, torch.ones_like(eid))
+    frac_tokens = counts.float() / (s * k)
     frac_probs = probs.mean(dim=1)
-    lb_loss = e * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
-    drop_frac = 1.0 - keep.float().mean()
-    return y, {"load_balance_loss": lb_loss, "drop_frac": drop_frac, "top_e": top_e}
+    return cfg.n_experts * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))

@@ -46,15 +46,19 @@ def truncated_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 class ParamBuilder:
     """Accumulates ``{name: tensor}`` for one parameter group (a layer, or the
-    embeddings), in the model's dtype unless told otherwise."""
+    embeddings), in the model's dtype unless told otherwise, and beside it
+    ``{name: logical axes}`` (one name or ``None`` per dimension, the JAX
+    package's ``ParamBuilder.axes``; :mod:`repro_torch.parallel.sharding` maps
+    them onto a mesh)."""
 
     def __init__(self, generator: torch.Generator, device, dtype: torch.dtype):
         self.generator = generator
         self.device = torch.device(device)
         self.dtype = dtype
         self.params: dict[str, torch.Tensor] = {}
+        self.axes: dict[str, tuple] = {}
 
-    def dense(self, name: str, shape: tuple[int, ...], scale: float | None = None):
+    def dense(self, name: str, shape: tuple[int, ...], axes: tuple, scale: float | None = None):
         std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
         if self.device.type != "meta":
@@ -62,19 +66,22 @@ class ParamBuilder:
             for i in range(0, shape[0], rows):
                 n = min(rows, shape[0] - i)
                 out[i:i + n] = truncated_normal((n, *shape[1:]), self.generator, self.device).mul_(std)
-        self.params[name] = out
-        return self
+        return self._add(name, out, axes)
 
-    def zeros(self, name: str, shape: tuple[int, ...], dtype=None):
-        self.params[name] = torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
-        return self
+    def zeros(self, name: str, shape: tuple[int, ...], axes: tuple, dtype=None):
+        return self._add(name, torch.zeros(shape, dtype=dtype or self.dtype, device=self.device), axes)
 
-    def ones(self, name: str, shape: tuple[int, ...], dtype=None):
-        self.params[name] = torch.ones(shape, dtype=dtype or self.dtype, device=self.device)
-        return self
+    def ones(self, name: str, shape: tuple[int, ...], axes: tuple, dtype=None):
+        return self._add(name, torch.ones(shape, dtype=dtype or self.dtype, device=self.device), axes)
 
-    def const(self, name: str, value: torch.Tensor):
-        self.params[name] = value.to(self.device)
+    def const(self, name: str, value: torch.Tensor, axes: tuple):
+        return self._add(name, value.to(self.device), axes)
+
+    def _add(self, name: str, value: torch.Tensor, axes: tuple):
+        if len(axes) != value.dim():
+            raise ValueError(f"{name}: {len(axes)} logical axes for a {value.dim()}-d parameter")
+        self.params[name] = value
+        self.axes[name] = tuple(axes)
         return self
 
 

@@ -20,15 +20,15 @@ from repro_torch.models.ssm import causal_conv, conv_tail, softplus
 
 def init_rglru_block(b: ParamBuilder, name: str, cfg: ModelConfig):
     d, w, kc = cfg.d_model, cfg.rnn_width, cfg.ssm_conv
-    b.dense(f"{name}.in_x", (d, w))
-    b.dense(f"{name}.in_gate", (d, w))
-    b.dense(f"{name}.conv_w", (kc, w), scale=0.5)
-    b.zeros(f"{name}.conv_b", (w,))
-    b.dense(f"{name}.w_a", (w, w), scale=0.02)
-    b.dense(f"{name}.w_i", (w, w), scale=0.02)
+    b.dense(f"{name}.in_x", (d, w), ("fsdp", "rnn"))
+    b.dense(f"{name}.in_gate", (d, w), ("fsdp", "rnn"))
+    b.dense(f"{name}.conv_w", (kc, w), ("conv", "rnn"), scale=0.5)
+    b.zeros(f"{name}.conv_b", (w,), ("rnn",))
+    b.dense(f"{name}.w_a", (w, w), ("rnn", None), scale=0.02)
+    b.dense(f"{name}.w_i", (w, w), ("rnn", None), scale=0.02)
     # Lambda so that a^c lies in (0.9, 0.999) at r = 1 (Griffin's appendix)
-    b.const(f"{name}.Lambda", torch.full((w,), 0.7, dtype=torch.float32))
-    b.dense(f"{name}.out_proj", (w, d))
+    b.const(f"{name}.Lambda", torch.full((w,), 0.7, dtype=torch.float32), ("rnn",))
+    b.dense(f"{name}.out_proj", (w, d), ("rnn", "fsdp"))
 
 
 def gates(cfg: ModelConfig, params, name: str, x_act):
@@ -46,6 +46,10 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device):
         "conv": torch.zeros((batch, kc - 1, w), dtype=dtype, device=device),
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
     }
+
+
+def rglru_cache_axes() -> dict:
+    return {"conv": ("batch", "conv", "rnn"), "h": ("batch", "rnn")}
 
 
 def apply_rglru_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):

@@ -22,17 +22,17 @@ def softplus(x):
 
 def init_mamba(b: ParamBuilder, name: str, cfg: ModelConfig):
     d, di, n, r, kc = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
-    b.dense(f"{name}.in_proj", (d, 2 * di))
-    b.dense(f"{name}.conv_w", (kc, di), scale=0.5)
-    b.zeros(f"{name}.conv_b", (di,))
-    b.dense(f"{name}.x_proj", (di, r + 2 * n))
-    b.dense(f"{name}.dt_proj", (r, di))
-    b.zeros(f"{name}.dt_bias", (di,))
+    b.dense(f"{name}.in_proj", (d, 2 * di), ("fsdp", "mlp"))
+    b.dense(f"{name}.conv_w", (kc, di), ("conv", "mlp"), scale=0.5)
+    b.zeros(f"{name}.conv_b", (di,), ("mlp",))
+    b.dense(f"{name}.x_proj", (di, r + 2 * n), ("mlp", None))
+    b.dense(f"{name}.dt_proj", (r, di), (None, "mlp"))
+    b.zeros(f"{name}.dt_bias", (di,), ("mlp",))
     # A_log: log of 1..N per channel (S4D-real init)
     a = torch.arange(1, n + 1, dtype=torch.float32).repeat(di, 1)
-    b.const(f"{name}.A_log", torch.log(a))
-    b.ones(f"{name}.D", (di,), dtype=torch.float32)
-    b.dense(f"{name}.out_proj", (di, d))
+    b.const(f"{name}.A_log", torch.log(a), ("mlp", "state"))
+    b.ones(f"{name}.D", (di,), ("mlp",), dtype=torch.float32)
+    b.dense(f"{name}.out_proj", (di, d), ("mlp", "fsdp"))
 
 
 def conv_tail(x, k: int):
@@ -83,6 +83,10 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
         "conv": torch.zeros((batch, kc - 1, di), dtype=dtype, device=device),
         "h": torch.zeros((batch, di, n), dtype=torch.float32, device=device),
     }
+
+
+def mamba_cache_axes() -> dict:
+    return {"conv": ("batch", "conv", "mlp"), "h": ("batch", "mlp", "state")}
 
 
 def apply_mamba_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):

@@ -15,8 +15,9 @@ one included) goes through the flash-attention op; the decoder's
 cross-attention over the encoder's output is the plain ``naive_attention``,
 as in the JAX package, which runs it outside any Pallas kernel.
 
-Public API: :func:`layer_kinds`, :func:`init_params`, :func:`forward`,
-:func:`loss_fn`, :func:`init_cache`, :func:`prefill`, :func:`decode_step`.
+Public API: :func:`layer_kinds`, :func:`init_params`, :func:`param_axes`,
+:func:`abstract_params`, :func:`forward`, :func:`loss_fn`, :func:`init_cache`,
+:func:`cache_axes`, :func:`prefill`, :func:`decode_step`.
 :func:`forward` returns the logits only; the JAX package's ``aux`` (the MoE
 layers' mean ``load_balance_loss`` and ``drop_frac``) comes from the private
 :func:`_forward`, and :func:`loss_fn` returns it among its metrics.  Every entry point
@@ -25,6 +26,14 @@ otherwise); the parameters must lie on that device.  ``impl="plain"`` runs
 the plain PyTorch versions of the prefill kernels (flash attention, SSM scan,
 RG-LRU scan) where the kernels would run.  Decode is plain on every device,
 as in the JAX package.  The cache's ``len`` is a Python int.
+
+Under a mesh (:func:`repro_torch.parallel.use_compat_mesh`) every process is
+one rank and holds its local shard of each tensor: its rows of the batch, the
+whole parameters (a MoE layer with ``moe_impl="ep"`` runs its rank's experts:
+:mod:`repro_torch.models.moe_ep`), and, when the rules put ``kv_seq`` on
+``model``, its sequence slice of every attention cache that is not circular
+(:func:`init_cache` and :func:`prefill` make it; :func:`decode_step` merges
+the ranks' attention: :mod:`repro_torch.parallel.sp_decode`).
 
 Training differentiates through the kernels: each runs inside a
 ``torch.autograd.Function`` whose backward recomputes its plain version (see
@@ -45,6 +54,7 @@ from repro_torch.kernels import check_impl
 from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import moe_ep as MEP
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
@@ -87,7 +97,7 @@ def _device(params: dict, device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(cfg: ModelConfig, kind: str, b: ParamBuilder) -> dict:
+def _init_layer(cfg: ModelConfig, kind: str, b: ParamBuilder) -> ParamBuilder:
     if kind == "mamba":
         L.init_norm(b, "norm", cfg)
         S.init_mamba(b, "mixer", cfg)
@@ -115,12 +125,28 @@ def _init_layer(cfg: ModelConfig, kind: str, b: ParamBuilder) -> dict:
         L.init_attention(b, "attn", cfg)
         L.init_norm(b, "norm2", cfg)
         L.init_mlp(b, "mlp", cfg)
-    return b.params
+    return b
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     """Random parameters on ``device`` from a ``torch.Generator`` seeded with
     ``seed`` (``device="meta"`` gives their shapes and dtypes only)."""
+    return _init(cfg, seed, device)[0]
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree matching :func:`init_params` (the JAX package's
+    ``param_axes``), built on the meta device: nothing is allocated."""
+    return _init(cfg, 0, "meta")[1]
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors: the shapes and dtypes of
+    :func:`init_params` without storage (the JAX package's ``eval_shape``)."""
+    return _init(cfg, 0, "meta")[0]
+
+
+def _init(cfg: ModelConfig, seed: int, device) -> tuple[dict, dict]:
     kinds = layer_kinds(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
@@ -128,15 +154,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     eb = ParamBuilder(gen, dev, dtype)
     L.init_embedding(eb, cfg)
     L.init_norm(eb, "final_norm", cfg)
-    params = dict(eb.params)
-    params["layers"] = [_init_layer(cfg, kind, ParamBuilder(gen, dev, dtype)) for kind in kinds]
+    params, axes = dict(eb.params), dict(eb.axes)
+    layers = [_init_layer(cfg, kind, ParamBuilder(gen, dev, dtype)) for kind in kinds]
+    params["layers"], axes["layers"] = [b.params for b in layers], [b.axes for b in layers]
     if cfg.family == "encdec":
-        params["encoder"] = [_init_layer(cfg, "encoder", ParamBuilder(gen, dev, dtype))
-                             for _ in range(cfg.encoder_layers)]
+        enc = [_init_layer(cfg, "encoder", ParamBuilder(gen, dev, dtype)) for _ in range(cfg.encoder_layers)]
+        params["encoder"], axes["encoder"] = [b.params for b in enc], [b.axes for b in enc]
         nb = ParamBuilder(gen, dev, dtype)
         L.init_norm(nb, "encoder_norm", cfg)
         params.update(nb.params)
-    return params
+        axes.update(nb.axes)
+    return params, axes
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +206,7 @@ def _feed_forward(cfg: ModelConfig, kind: str, p: dict, x):
     h = L.apply_norm(cfg, p, "norm2", x)
     if kind != "moe":
         return x + L.apply_mlp(cfg, p, "mlp", h), None
-    y, aux = M.apply_moe(cfg, p, "moe", h)
+    y, aux = (MEP.apply_moe_ep if cfg.moe_impl == "ep" else M.apply_moe)(cfg, p, "moe", h)
     if cfg.dense_residual:
         y = y + L.apply_mlp(cfg, p, "mlp", h)
     return x + y, aux
@@ -308,8 +336,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device
                 "cross_v": torch.zeros(cross, dtype=dtype, device=dev),
             })
         else:
-            caches.append(L.init_attention_cache(cfg, batch, _attn_cache_len(cfg, kind, max_len), dtype, dev))
+            caches.append(L.init_attention_cache(cfg, batch, _attn_cache_len(cfg, kind, max_len), dtype, dev,
+                                                 window=_window(cfg, kind)))
     return {"layers": caches, "len": 0}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of :func:`init_cache`'s cache (the JAX package's
+    ``cache_axes``)."""
+    caches = []
+    for kind in layer_kinds(cfg):
+        if kind == "mamba":
+            caches.append(S.mamba_cache_axes())
+        elif kind == "rec":
+            caches.append(R.rglru_cache_axes())
+        elif kind == "decoder":
+            cross = ("batch", None, "kv_heads", "head_dim")
+            caches.append({"self": L.attention_cache_axes(), "cross_k": cross, "cross_v": cross})
+        else:
+            caches.append(L.attention_cache_axes())
+    return {"layers": caches, "len": ()}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_block: int = 1024,
@@ -337,20 +383,17 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_bloc
             continue
         if kind == "decoder":
             k, v, ck, cv = state
-            lc["self"]["k"][:, :s] = k
-            lc["self"]["v"][:, :s] = v
-            lc["self"]["len"] = s
+            L.fill_attention_cache(lc["self"], k, v)
             new_caches.append({"self": lc["self"], "cross_k": ck.to(dtype), "cross_v": cv.to(dtype)})
             continue
         k, v = state
         clen = lc["k"].shape[1]
-        if clen < s:
+        if clen < s and "seq_len" not in lc:  # a rolling window cache; a sequence slice is never circular
             lc["k"] = torch.roll(k[:, -clen:], s % clen, dims=1).to(dtype)
             lc["v"] = torch.roll(v[:, -clen:], s % clen, dims=1).to(dtype)
+            lc["len"] = s
         else:
-            lc["k"][:, :s] = k
-            lc["v"][:, :s] = v
-        lc["len"] = s
+            L.fill_attention_cache(lc, k, v)
         new_caches.append(lc)
     x = L.apply_norm(cfg, params, "final_norm", x[:, -1:])
     return L.unembed(cfg, params, x), {"layers": new_caches, "len": s}

@@ -42,6 +42,12 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
     return {"mu": _map(zeros, params), "nu": _map(zeros, params), "step": step}
 
 
+def opt_state_axes(param_axes) -> dict:
+    """The optimizer state's logical-axes tree: each moment inherits its
+    parameter's axes, the step counter is a scalar."""
+    return {"mu": param_axes, "nu": param_axes, "step": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)]

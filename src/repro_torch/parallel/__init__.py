@@ -1,0 +1,30 @@
+"""Distribution substrate: mesh conventions, logical-axis sharding rules and
+the explicit sequence-parallel decode (the port of :mod:`repro.parallel`)."""
+
+from repro_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    AbstractMesh,
+    PartitionSpec,
+    active_abstract_mesh,
+    axis_rules,
+    current_rules,
+    logical_sharding,
+    make_compat_mesh,
+    shard,
+    shard_params,
+    use_compat_mesh,
+)
+
+__all__ = [
+    "DEFAULT_RULES",
+    "AbstractMesh",
+    "PartitionSpec",
+    "active_abstract_mesh",
+    "axis_rules",
+    "current_rules",
+    "logical_sharding",
+    "make_compat_mesh",
+    "shard",
+    "shard_params",
+    "use_compat_mesh",
+]

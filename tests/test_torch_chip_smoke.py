@@ -387,3 +387,104 @@ def test_autoscale_grids_are_the_benchmarks(smoke):
     assert (full.n_cells, full.n_periods, full.capacity, full.max_spot) == (72, 1152, 12, 16)
     wide = smoke.autoscale_bench_scenario(capacity=None, seeds=smoke.WIDE_SEEDS)
     assert (wide.n_cells, wide.capacity) == (576, None)
+
+
+def test_parallel_phase_cuts_and_tolerances(smoke):
+    from repro_torch.configs import get_config
+
+    cuts, tol = smoke.parallel_cuts(), smoke.parallel_tolerances()
+    assert set(cuts) == {"compression", "sp_decode", "ep_moe"}
+    assert cuts["compression"] == {"model": "glm4-9b", "layers": 4, "of_layers": 40}
+    sp = smoke.sp_cfg()
+    # internlm2-20b's published attention widths, 8 of its 48 layers
+    assert (sp.n_heads, sp.n_kv_heads, sp.d_head, sp.d_model, sp.n_layers) == (48, 8, 128, 6144, 8)
+    assert get_config(smoke.SP_ARCH).n_layers == cuts["sp_decode"]["of_layers"] == 48
+    ranks, cache, prompt, steps = smoke.PARALLEL_RANKS, smoke.SP_CACHE, smoke.SP_PROMPT, smoke.SP_STEPS
+    assert (ranks, cache, cache // ranks) == (4, 32768, 8192)
+    # the prompt fills three ranks' slices and reaches into the fourth, where every step appends
+    assert 3 * cache // ranks < prompt and prompt + steps <= cache
+    ep = get_config(smoke.EP_ARCH)
+    assert (ep.n_experts, ep.n_experts // ranks, ep.top_k, ep.d_model, ep.d_ff) == (128, 32, 2, 7168, 4864)
+    assert cuts["ep_moe"]["tokens"] == 2 * 4096
+    assert tol["sp_decode_logits"] == smoke.LOGITS_TOL and tol["ep_moe_y_bf16_ulps"] == smoke.EP_ULPS == 1
+    assert tol["sp_merge_of_scale"] == smoke.SP_MERGE_TOL == 1e-2 and tol["sp_prefill_flash"] == smoke.ATTN_TOL["bfloat16"]
+    assert tol["ep_moe_load_balance_rtol"] == 1e-5
+
+
+def test_compression_sample_names_leaves_of_the_training_model(smoke):
+    from repro_torch.models import transformer as T
+
+    tree = T.abstract_params(smoke.train_cfg())
+    shapes = [tuple(smoke.tree_at(tree, p).shape) for p in smoke.COMPRESS_SAMPLE]
+    assert shapes == [(4096,), (4096,), (4096, 2, 128), (4096, 32, 128), (13696, 4096)]
+    assert smoke.COMPRESS_STEPS == 3
+
+
+def test_error_feedback_check_and_bits(smoke):
+    from repro_torch.optim import compress as C
+
+    gen = torch.Generator().manual_seed(0)
+    g = {"w": torch.randn(1000, generator=gen).to(torch.bfloat16)}
+    state = C.compress_gradients_init(g)
+    r_old = state.residual["w"]
+    sent, state = C.compressed_grad_transform(g, state)
+    assert smoke.ef_violation(sent["w"], g["w"], r_old, state.residual["w"]) <= 1.0
+    broken = sent["w"].clone()
+    broken[7] += 1.0
+    assert smoke.ef_violation(broken, g["w"], r_old, state.residual["w"]) > 1.0
+    x = torch.tensor([0.0, 1.5])
+    assert smoke.same_bits(x, x.clone()) and not smoke.same_bits(x, torch.tensor([-0.0, 1.5]))
+    assert not smoke.same_bits(x, x.to(torch.bfloat16))
+
+
+def test_bf16_ulps_counts_each_elements_own_ulp(smoke):
+    want = torch.tensor([1.0, 300.0, -0.01, 0.0], dtype=torch.bfloat16)
+    assert smoke.bf16_ulps(want, want) == 0.0
+    step = torch.tensor([2.0 ** -7, 2.0, 2.0 ** -14, 0.0])  # one ulp of each (bf16 keeps 8 significant bits)
+    assert smoke.bf16_ulps(want.float() + step, want) == pytest.approx(1.0)
+    assert smoke.bf16_ulps(want.float() + 3 * step, want) == pytest.approx(3.0)
+    assert smoke.bf16_ulps(torch.tensor([1.0, 300.0, -0.01, 1e-30]), want.float()) == float("inf")  # 0 is exact
+
+
+def test_recorder_keeps_every_nth_call_and_restores(smoke):
+    import types
+
+    mod = types.SimpleNamespace(f=lambda x, y=0: x + y)
+    with smoke.Recorder(mod, "f", every=3, limit=2) as rec:
+        assert [mod.f(i, y=1) for i in range(10)] == list(range(1, 11))
+    assert [(a, kw, out) for a, kw, out in rec.calls] == [((0,), {"y": 1}, 1), ((3,), {"y": 1}, 4)]
+    assert mod.f(1) == 1 and rec.n == 10
+
+
+def test_sp_merge_check_passes_the_merge_and_catches_broken_ones(smoke):
+    from repro_torch.kernels.flash_attention.ref import decode_attention
+
+    gen = torch.Generator().manual_seed(0)
+    k, v = (torch.randn((1, 64, 2, 16), generator=gen).to(torch.bfloat16) for _ in range(2))
+    calls = []
+    for pos in (40, 41):  # rank 3's slice (48..63) is still empty: its partial must weigh 0
+        q = torch.randn((1, 1, 6, 16), generator=gen).to(torch.bfloat16)
+        parts = smoke.sp_partials(q, k, v, pos, 4)
+        merged = smoke.merge_partials(parts, q.shape, q.dtype)
+        assert smoke.bf16_ulps(merged, decode_attention(q, k, v, pos + 1)) <= 1
+        calls.append((q, pos, merged))
+    out = smoke.sp_merge_check(calls, k, v, 4, device="cpu")
+    assert out["max_abs_err"] <= out["bound"] < min(out["broken_merges"].values()) and out["steps"] == 2
+    wrong = [(q, pos, smoke.merge_partials(smoke.sp_partials(q, k, v, pos, 4), q.shape, q.dtype, "rank0_dropped"))
+             for q, pos, _ in calls]
+    with pytest.raises(AssertionError, match="merged attention"):
+        smoke.sp_merge_check(wrong, k, v, 4, device="cpu")
+
+
+def test_hold_flash_prefill_chunks_the_queries(smoke):
+    from repro_torch.kernels.flash_attention.ref import naive_attention
+
+    gen = torch.Generator().manual_seed(1)
+    n = smoke.SP_CHUNK + 40  # two chunks, the second ragged
+    q, k, v = (torch.randn((1, n, h, 16), generator=gen).to(torch.bfloat16) for h in (4, 2, 2))
+    out = naive_attention(q, k, v)
+    assert smoke.hold_flash_prefill(((q, k, v), {"causal": True}, out)) == 0.0
+    late = out.clone()
+    late[:, -1] += 1.0  # the last query of the ragged chunk
+    with pytest.raises(AssertionError, match="queries 512"):
+        smoke.hold_flash_prefill(((q, k, v), {"causal": True}, late))

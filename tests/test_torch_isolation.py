@@ -124,6 +124,13 @@ def test_every_module_is_found():
         "repro_torch.suite.spec",
         "repro_torch.suite.store",
         "repro_torch.suite.trend",
+        "repro_torch.optim.compress",
+        "repro_torch.parallel",
+        "repro_torch.parallel.ranks",
+        "repro_torch.parallel.sharding",
+        "repro_torch.parallel.sp_decode",
+        "repro_torch.models.moe_ep",
+        "repro_torch.launch.mesh",
     ):
         assert required in names
 
