@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models, train, and run the distribution substrate as four ranks.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models, train, run the distribution substrate as four ranks, and train placed on a mesh of four ranks.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -102,7 +102,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ragged lengths and widths on random inputs from a seed, the RG-LRU scan
    bit for bit (``torch.equal``) on both of its bodies.
 11. Serves every architecture of ``repro_torch.configs`` at its full published
-   widths (random weights from a seeded ``torch.Generator`` on the card):
+   widths (random weights from a seed, drawn on the card in the JAX package's
+   ``jax.random`` stream, after a check that the card draws the CPU's words):
    glm4-9b, recurrentgemma-9b, falcon-mamba-7b, internlm2-20b, starcoder2-3b,
    starcoder2-7b, internvl2-1b (256 random vision embeddings over the first 256
    prompt positions) and whisper-large-v3 (2 x 1500 random encoder frames) with
@@ -172,22 +173,45 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    the dropped assignments equal.  Each rank also times gloo's ``all_reduce``
    at its path's sizes.  Prints one ``{"parallel": ...}`` line with the
    times, the cuts and the tolerances.
-17. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+17. Mesh-placed execution, four gloo ranks on the one card on a 2 x 2 ``data x
+   model`` mesh (``MESH_*``; DTensor's all-gather of CUDA tensors goes through
+   :mod:`repro_torch.parallel.gloo_cuda`, built on gloo's ``all_reduce``):
+   (a) glm4-9b at its published widths with 4 of its 40 layers, parameters,
+   AdamW state (bf16 moments: four ranks share the card) and a 2 x 2048 batch
+   placed by ``shard_params``, one warm-up and one timed step, the loss and
+   the grad norm of both against the single-process step on the card (run
+   first) within ``TRAIN_LOSS_TOL``, flash attention launched 4 times a
+   forward in each rank, every leaf split both ways holding a quarter a rank,
+   and gloo's collectives of the path timed at their sizes in the ranks; (b)
+   one ``loss_fn`` and its gradient of falcon-mamba-7b (2 layers) and
+   recurrentgemma-9b (3 layers) at published widths, 2 x 512 tokens, the
+   ``ssm_scan`` / ``rglru_scan`` / flash launches counted in each rank,
+   against the single process; (c) ``repro_torch.launch.elastic_restart``'s
+   two launches at (a)'s widths and depth, int8 checkpoint, 1 step each: 2
+   ranks on ``(2,)`` (rank 0 alone quantizes), then 4 on ``(2, 2)`` restoring
+   with ``shardings=``; every rank's restored shard equal to the single
+   process's restored leaf's slice (a 64-bit checksum of its bits), launch 2's
+   losses against one process restoring the same checkpoint within
+   ``TRAIN_LOSS_TOL``.  Prints one ``{"mesh": ...}`` line.
+18. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
    five-scheme study of phase 4, the six-scheme study of phase 5 and the
-   contended studies of phase 6; the attention row's: serving, training and
-   the SP decode's prefills in the ranks of phase 16).
-18. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   contended studies of phase 6; the model kernels' and the codec's: serving,
+   training and the campaign, the SP decode's prefills in the ranks of phase
+   16, and the mesh phase's ranks).
+19. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1621,6 +1645,26 @@ def measure_kernel(name, mods, args, kw) -> dict:
     return row
 
 
+def init_stream_check(device) -> None:
+    """The random init's stream on the card: its threefry words equal the CPU's, and
+    its truncated normal the CPU's but for log / log1p rounding (an ulp)."""
+    import torch
+
+    from repro_torch.data import threefry
+    from repro_torch.models.params import truncated_normal
+
+    key, start, n = threefry.split(threefry.prng_key(7), 3)[2], 2**32 - 4096, 1 << 20
+    if not torch.equal(threefry.random_bits(key, start, n, device).cpu(), threefry.random_bits(key, start, n)):
+        raise AssertionError("init stream: the card's threefry words differ from the CPU's")
+    got, want = truncated_normal(key, start, n, device).cpu(), truncated_normal(key, start, n, "cpu")
+    same = float((got.view(torch.int32) == want.view(torch.int32)).float().mean())
+    err = float((got - want).abs().max())
+    if not err <= 2.0**-20:
+        raise AssertionError(f"init stream: the card's truncated normal {err} from the CPU's")
+    print(f"init stream: threefry words card == CPU on {n}; truncated normal {same:.6f} bit for bit, "
+          f"within {err:.3g}", flush=True)
+
+
 def serve_models(device) -> dict[str, dict]:
     """Phase 6: serve each model at full width, kernel path then plain path, and
     measure each kernel on the inputs of its first layer.  Returns per kernel its
@@ -2065,7 +2109,7 @@ class CampaignWatch:
         self._saved[step] = [x.detach().to("cpu", copy=True) for x in tree_lib.leaves(tree)]
         return meta
 
-    def restore(self, template, step=None):
+    def restore(self, template, step=None, **kw):
         import torch
 
         from repro_torch.checkpoint import tree as tree_lib
@@ -2073,7 +2117,7 @@ class CampaignWatch:
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tree, extra = self._restore(template, step)
+        tree, extra = self._restore(template, step, **kw)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
         saved = self._saved[int(extra["step"])]
@@ -2590,6 +2634,7 @@ def parallel_phase(device, card) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import moe as M
+    from repro_torch.data.threefry import prng_key
     from repro_torch.models.params import ParamBuilder, model_dtype
     from repro_torch.parallel.ranks import run_ranks
 
@@ -2644,7 +2689,7 @@ def parallel_phase(device, card) -> dict:
 
     # -- EP MoE: the single-process layer first, its output kept on the host ------
     cfg = get_config(EP_ARCH)
-    b = ParamBuilder(torch.Generator(device=device).manual_seed(3), device, model_dtype(cfg))
+    b = ParamBuilder(prng_key(3), device, model_dtype(cfg))
     M.init_moe(b, "moe", cfg)
     params = b.params
     gen = torch.Generator(device=device).manual_seed(4)
@@ -2681,10 +2726,453 @@ def parallel_phase(device, card) -> dict:
           f"tokens): ranks agree bit for bit, y within {ep_ulps:g} bf16 ulp of apply_moe, dropped "
           f"{ep['dropped']} of {assignments} on both; {ep['ms']:.2f} ms a call against {dense_ms:.2f}", flush=True)
     del params, x, b, ranks
+    gc.collect()
+    torch.cuda.ipc_collect()  # the layer the ranks held by IPC
     torch.cuda.empty_cache()
     out = {"card": card, "ranks": PARALLEL_RANKS, "backend": "gloo", "compression": compression, "sp_decode": sp,
            "ep_moe": ep, "cuts": parallel_cuts(), "tolerances": parallel_tolerances()}
     print(json.dumps({"parallel": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh phase: placed training on four ranks of the one card (gloo)
+# ---------------------------------------------------------------------------
+
+#: Placed execution (DTensors by the logical-axes rules) on a 2 x 2 data x model mesh of
+#: four gloo ranks on the one card.  (a) glm4-9b at its published widths with phase 14's
+#: 4 of 40 layers, batch 2 x 2048 (half of phase 14's sequence: four ranks share the
+#: 80 GB), one warm-up and one timed step; (b) one loss_fn and its gradient of
+#: falcon-mamba-7b (2 of 64 layers) and recurrentgemma-9b (3 of 38) at published widths,
+#: batch 2 x 512; (c) examples/elastic_restart.py's two launches at (a)'s widths and
+#: depth, int8 checkpoint, 2 steps each: 2 ranks on (2,), then 4 on (2, 2), so that
+#: launch 2's second step runs on the restored AdamW moments.  AdamW keeps its moments
+#: in bfloat16 here (phase 14: float32): each rank holds the embeddings whole over the
+#: data axis, and with float32 moments four ranks' states and their updates would not
+#: fit the card.  The phase's time is cut by the scans' sequence (1024 -> 512); the rest
+#: is the ranks' start, the checkpoint's gather and write, and its restore in four ranks.
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_MOMENTS = 2, 2048, 2, "bfloat16"
+MESH_SCAN_MODELS = (("falcon-mamba-7b", 2, {"ssm_scan": 2}), ("recurrentgemma-9b", 3,
+                                                                 {"rglru_scan": 2, "flash_attention": 1}))
+MESH_SCAN_BATCH, MESH_SCAN_SEQ = 2, 512
+ELASTIC_STEPS, ELASTIC_CODEC = 2, "int8"
+#: The keys of the phase's ``{"mesh": ...}`` line.
+MESH_LINE_KEYS = ("card", "ranks", "mesh", "backend", "parent_gb_at_start", "train", "scans", "elastic", "launches", "phase_s", "cuts",
+                  "tolerances")
+
+
+def mesh_cuts() -> dict:
+    from repro_torch.launch import elastic_restart as E
+
+    return {
+        "train": {"model": TRAIN_ARCH, "layers": TRAIN_LAYERS, "of_layers": 40, "batch": MESH_BATCH,
+                  "seq": MESH_SEQ, "steps": MESH_STEPS, "moment_dtype": MESH_MOMENTS,
+                  "why": "four ranks share the card's 80 GB: half of phase 14's sequence, bf16 moments"},
+        "scans": {arch: {"layers": layers, "batch": MESH_SCAN_BATCH, "seq": MESH_SCAN_SEQ}
+                  for arch, layers, _ in MESH_SCAN_MODELS},
+        "elastic": {"model": E.ARCH, "layers": TRAIN_LAYERS, "batch": MESH_BATCH, "seq": MESH_SEQ,
+                    "steps_each": ELASTIC_STEPS, "codec": ELASTIC_CODEC, "first_mesh": list(E.FIRST_MESH),
+                    "second_mesh": list(MESH_SHAPE)},
+    }
+
+
+def mesh_tolerances() -> dict:
+    return {"loss_and_grad_norm": TRAIN_LOSS_TOL, "restored_shards": "bit for bit (a 64-bit weighted sum of "
+            "each shard's 16-bit words against the single process's slice)"}
+
+
+def mesh_opt():
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(lr=1e-4, moment_dtype=MESH_MOMENTS)
+
+
+def mesh_batches(cfg, device, n):
+    from repro_torch.data import TokenStream
+
+    data = TokenStream(vocab_size=cfg.vocab_size, batch=MESH_BATCH, seq_len=MESH_SEQ, seed=11, device=device)
+    return [next(data) for _ in range(n)]
+
+
+def held(got, want, tol) -> bool:
+    return abs(got - want) <= tol + tol * abs(want)
+
+
+def mesh_train_single(device) -> dict:
+    """(a)'s steps in one process on the card: the losses, grad norms and times."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = train_cfg()
+    params = T.init_params(cfg, seed=0, device=device)
+    opt_state = adamw_init(params, mesh_opt())
+    step = make_train_step(cfg, mesh_opt(), remat=False, q_block=1024, kv_block=1024)
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    torch.cuda.reset_peak_memory_stats()
+    for batch in mesh_batches(cfg, device, MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_collectives(mesh, shard, table_shard) -> dict:
+    """gloo's collectives of the path at its sizes, on the data axis: the FSDP gather of a
+    layer weight's shard (the all-gather built on all_reduce), the reduce-scatter of its
+    gradient, and the all-reduce of an embedding's gradient (whole over data)."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    group = mesh.get_group("data")
+    n = dist.get_world_size(group)
+    whole = torch.zeros((shard.shape[0] * n, *shard.shape[1:]), dtype=shard.dtype, device=shard.device)
+    grad = torch.zeros_like(table_shard)
+
+    def gather():
+        y = funcol.all_gather_tensor(shard, 0, group)
+        return y.wait() if hasattr(y, "wait") else y
+
+    def scatter():
+        y = funcol.reduce_scatter_tensor(whole, "sum", 0, group)
+        return y.wait() if hasattr(y, "wait") else y
+
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    return {
+        "all_gather_on_all_reduce": {"ms": time_ms(gather, reps=3), "bytes_in": size(shard), "bytes_out": size(whole)},
+        "reduce_scatter": {"ms": time_ms(scatter, reps=3), "bytes_in": size(whole), "bytes_out": size(shard)},
+        "all_reduce": {"ms": time_ms(lambda: dist.all_reduce(grad, group=group), reps=3), "bytes": size(grad)},
+    }
+
+
+def mesh_rank(rank) -> dict:
+    """(a), then (b), in one rank."""
+    out = {"train": mesh_train_rank(rank), "scans": {}}
+    for arch, layers, _ in MESH_SCAN_MODELS:
+        out["scans"][arch] = mesh_scan_rank(rank, arch, layers)
+    return out
+
+
+def mesh_train_rank(rank) -> dict:
+    """(a) in one rank: glm4-9b placed on the 2 x 2 mesh, a warm-up and a timed step."""
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import gloo_cuda
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.steps import make_train_step, place_batch
+
+    mesh = S.make_compat_mesh(MESH_SHAPE, MESH_AXES, device_type="cuda")
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = train_cfg()
+    out = {"losses": [], "grad_norms": [], "step_s": [], "launches": [], "gathers": []}
+    with S.use_compat_mesh(mesh):
+        params = T.init_params(cfg, seed=0, device=device)  # every rank the same whole init; each keeps its shards
+        params = S.place(params, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=params))
+        opt_state = adamw_init(params, mesh_opt())  # the moments placed as their parameters
+        torch.cuda.empty_cache()
+        split = [x for x in tree_lib.leaves(params) if sum(p.is_shard() for p in x.placements) == 2]
+        quarter = all(x.to_local().numel() * 4 == x.numel() for x in split)
+        step = make_train_step(cfg, mesh_opt(), remat=False, q_block=1024, kv_block=1024)
+        torch.cuda.reset_peak_memory_stats()
+        for batch in mesh_batches(cfg, device, MESH_STEPS):
+            batch = place_batch(mesh, batch)
+            torch.cuda.synchronize()
+            reset_launches()
+            gloo_cuda.STATS.calls = gloo_cuda.STATS.bytes = 0
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)  # the main path
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["launches"].append(read_launches())
+            out["gathers"].append({"calls": gloo_cuda.STATS.calls, "bytes": gloo_cuda.STATS.bytes})
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["split_leaves"], out["split_leaves_hold_a_quarter"] = len(split), quarter
+        w = params["layers"][0]["mlp.wi_up"]  # the biggest layer weight, (fsdp, mlp)
+        out["collectives"] = time_collectives(mesh, w.to_local(), params["embed.tokens"].to_local())
+        out["collective_shapes"] = {"layer_weight_shard": list(w.to_local().shape),
+                                    "embedding_shard": list(params["embed.tokens"].to_local().shape)}
+    del params, opt_state, m, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_scan_rank(rank, arch, layers) -> dict:
+    """(b) in one rank: one placed loss_fn and its gradient; the loss, the gradient's
+    global norm and the kernels' launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.steps import as_placed_like, place_batch
+
+    mesh = S.make_compat_mesh(MESH_SHAPE, MESH_AXES, device_type="cuda")
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tokens = mesh_scan_tokens(cfg, device)
+    with S.use_compat_mesh(mesh):
+        params = T.init_params(cfg, seed=0, device=device)
+        params = S.place(params, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=params))
+        batch = place_batch(mesh, tokens)
+        leaves, treedef = tree_lib.flatten(params)
+        wrt = [x.detach().requires_grad_(True) for x in leaves]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, remat=False)  # the main path
+        grads = [as_placed_like(g, x) for x, g in zip(wrt, torch.autograd.grad(loss, wrt))]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        out = {"loss": float(loss.detach().to_local()), "grad_norm": float(global_norm(grads)), "launches": launches,
+               "s": seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, wrt, grads, loss, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_scan_tokens(cfg, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    t = torch.randint(0, cfg.vocab_size, (MESH_SCAN_BATCH, MESH_SCAN_SEQ + 1), generator=gen, device=device)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def mesh_scan_single(arch, layers, device) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import global_norm
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    params = T.init_params(cfg, seed=0, device=device)
+    leaves, treedef = tree_lib.flatten(params)
+    wrt = [x.detach().requires_grad_(True) for x in leaves]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), mesh_scan_tokens(cfg, device), remat=False)
+    grads = torch.autograd.grad(loss, wrt)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach()), "grad_norm": float(global_norm(grads)), "s": time.perf_counter() - t0}
+    del params, wrt, grads, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_run(ckpt_dir):
+    from repro_torch.launch.elastic_restart import ElasticRun
+
+    return ElasticRun(ckpt_dir=ckpt_dir, preset="full", layers=TRAIN_LAYERS, batch=MESH_BATCH, seq=MESH_SEQ,
+                      steps=ELASTIC_STEPS, lr=1e-4, moment_dtype=MESH_MOMENTS, codec=ELASTIC_CODEC, block=1024,
+                      second_mesh=MESH_SHAPE, device="cuda")
+
+
+def elastic_first_rank(rank, run) -> dict:
+    """Launch 1 of (c), its kernels' launches counted in the rank."""
+    from repro_torch.launch import elastic_restart as E
+
+    reset_launches()
+    out = E.first_launch(rank, run)  # the main path
+    out["launches"] = read_launches()
+    return out
+
+
+def elastic_second_rank(rank, run) -> dict:
+    from repro_torch.launch import elastic_restart as E
+
+    reset_launches()
+    out = E.second_launch(rank, run)  # the main path
+    out["launches"] = read_launches()
+    return out
+
+
+def elastic_single(run, device) -> dict:
+    """One process on the card restores launch 1's checkpoint and takes launch 2's
+    steps; returns the losses and the restored leaves' slices' digests checked against
+    the ranks' (by the caller)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.launch import elastic_restart as E
+    from repro_torch.train.steps import make_train_step
+
+    meta = E.abstract_state(run)
+    leaves, treedef = tree_lib.flatten(meta)
+    template = treedef.unflatten([torch.empty(x.shape, dtype=x.dtype, device=device) for x in leaves])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (params, opt_state), extra = CheckpointManager(run.ckpt_dir, keep=1, codec_name=run.codec).restore(
+        template, step=run.steps)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template
+    restored = tree_lib.leaves((params, opt_state))
+    data = run.stream(device)
+    data.load_state_dict(extra["data"])
+    step = make_train_step(run.config(), run.opt_config(), remat=False, q_block=run.block, kv_block=run.block)
+    return {"restored": restored, "params": params, "opt_state": opt_state, "data": data, "step": step,
+            "restore_s": restore_s}
+
+
+def mesh_phase(device, card) -> dict:
+    """Phase 17: placed training on four ranks of the one card."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import elastic_restart as E
+    from repro_torch.parallel.ranks import run_ranks
+
+    _build.load_library()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # the ranks share the card
+    gc.collect()
+    torch.cuda.ipc_collect()  # blocks phase 16 shared with its ranks by IPC
+    torch.cuda.empty_cache()
+    parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9, "reserved": torch.cuda.memory_reserved() / 1e9}
+    print(f"mesh: the parent holds {parent_gb['allocated']:.2f} GB of the card ({parent_gb['reserved']:.2f} GB "
+          f"reserved) as the phase starts", flush=True)
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) and (b): one process first, its numbers kept on the host; then one spawn of four ranks
+    torch.cuda.empty_cache()
+    single = mesh_train_single(device)
+    singles = {arch: mesh_scan_single(arch, layers, device) for arch, layers, _ in MESH_SCAN_MODELS}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    both = run_ranks(mesh_rank, math.prod(MESH_SHAPE))
+    train_wall = time.perf_counter() - t0
+    ranks = [o["train"] for o in both]
+    tol = TRAIN_LOSS_TOL["dense"]
+    for r, out in enumerate(ranks):
+        if out["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"mesh train: rank {r}'s losses {out['losses']} differ from rank 0's")
+        for i in range(MESH_STEPS):
+            for key in ("losses", "grad_norms"):
+                if not held(out[key][i], single[key][i], tol):
+                    raise AssertionError(f"mesh train step {i}: {key} {out[key][i]} vs one process {single[key][i]}")
+            if out["launches"][i]["flash_attention"] != TRAIN_LAYERS:
+                raise AssertionError(f"mesh train rank {r} step {i}: launches {out['launches'][i]}")
+        if not out["split_leaves"] or not out["split_leaves_hold_a_quarter"]:
+            raise AssertionError(f"mesh train rank {r}: a leaf split both ways holds more than a quarter")
+        add(out["launches"][-1])
+    train = {"losses": ranks[0]["losses"], "grad_norms": ranks[0]["grad_norms"],
+             "single_process": {k: single[k] for k in ("losses", "grad_norms", "step_s", "peak_memory_gb")},
+             "step_s": [max(o["step_s"][i] for o in ranks) for i in range(MESH_STEPS)],
+             "rank_peak_memory_gb": max(o["peak_memory_gb"] for o in ranks), "spawn_wall_s": train_wall,
+             "flash_launches_per_rank_per_step": TRAIN_LAYERS,
+             "split_leaves": ranks[0]["split_leaves"], "all_gathers_a_step": ranks[0]["gathers"][-1],
+             "collectives": {k: {kk: max(o["collectives"][k][kk] for o in ranks) if kk == "ms" else v[kk]
+                                 for kk in v} for k, v in ranks[0]["collectives"].items()},
+             "collective_shapes": ranks[0]["collective_shapes"]}
+    print(f"mesh train {TRAIN_ARCH} ({TRAIN_LAYERS} layers, {MESH_BATCH} x {MESH_SEQ}, {MESH_SHAPE} data x model, "
+          f"4 ranks): losses {train['losses']} vs one process {single['losses']}, grad norms within {tol}; "
+          f"step {train['step_s'][-1]:.2f} s against {single['step_s'][-1]:.3f} s; flash {TRAIN_LAYERS} a rank a "
+          f"step; {train['split_leaves']} leaves split both ways hold a quarter a rank", flush=True)
+
+    scans = {}
+    for arch, layers, want in MESH_SCAN_MODELS:
+        one, family = singles[arch], "ssm" if arch == "falcon-mamba-7b" else "hybrid"
+        outs = [o["scans"][arch] for o in both]
+        for r, out in enumerate(outs):
+            if not (held(out["loss"], one["loss"], TRAIN_LOSS_TOL[family])
+                    and held(out["grad_norm"], one["grad_norm"], TRAIN_LOSS_TOL[family])):
+                raise AssertionError(f"mesh {arch} rank {r}: loss {out['loss']} / norm {out['grad_norm']} vs one "
+                                     f"process {one['loss']} / {one['grad_norm']}")
+            got = {k: v for k, v in out["launches"].items() if v}
+            if got != want:
+                raise AssertionError(f"mesh {arch} rank {r}: launches {got}, expected {want} a rank")
+            add(out["launches"])
+        scans[arch] = {"loss": outs[0]["loss"], "grad_norm": outs[0]["grad_norm"], "single_process": one,
+                       "s": max(o["s"] for o in outs), "launches_per_rank": want,
+                       "rank_peak_memory_gb": max(o["peak_memory_gb"] for o in outs)}
+        print(f"mesh {arch} ({layers} layers, {MESH_SCAN_BATCH} x {MESH_SCAN_SEQ}): loss {outs[0]['loss']:.4f} vs "
+              f"one process {one['loss']:.4f}, launches {want} a rank", flush=True)
+    del both, ranks
+    torch.cuda.empty_cache()
+
+    # (c) the elastic restore
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_elastic_") as ckpt_dir:
+        run = elastic_run(ckpt_dir)
+        t0 = time.perf_counter()
+        first = run_ranks(elastic_first_rank, math.prod(E.FIRST_MESH), run)
+        second = run_ranks(elastic_second_rank, math.prod(run.second_mesh), run)
+        elastic_wall = time.perf_counter() - t0
+        single = elastic_single(run, device)
+        for r, out in enumerate(second):
+            for i, (got, want) in enumerate(zip(out["digests"], single["restored"])):
+                if E.slice_digest(want, got["offset"], got["shape"]) != got["digest"]:
+                    raise AssertionError(f"elastic: rank {r}'s restored shard of leaf {i} differs from the "
+                                         f"single process's slice {got['offset']} + {got['shape']}")
+        del single["restored"]
+        params, opt_state, data, step = single["params"], single["opt_state"], single["data"], single["step"]
+        losses = []
+        for _ in range(run.steps):
+            params, opt_state, m = step(params, opt_state, next(data))
+            losses.append(float(m["loss"]))
+        del params, opt_state, m, single["params"], single["opt_state"]
+        torch.cuda.empty_cache()
+        for r, out in enumerate(second):
+            if out["losses"] != second[0]["losses"] or not all(held(g, w, tol) for g, w in zip(out["losses"], losses)):
+                raise AssertionError(f"elastic launch 2 rank {r}: losses {out['losses']} vs one process {losses}")
+        for out in (*first, *second):
+            add(out["launches"])
+        if first[0]["launches"]["ckpt_codec"] < 1 or any(o["launches"]["ckpt_codec"] for o in first[1:]):
+            raise AssertionError(f"elastic: rank 0 alone quantizes: {[o['launches'] for o in first]}")
+        written = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+    elastic = {"first_losses": first[0]["losses"], "second_losses": second[0]["losses"],
+               "single_process_second_losses": losses, "checkpoint_bytes": written,
+               "save_s": first[0]["save_s"], "restore_s": max(o["restore_s"] for o in second),
+               "single_process_restore_s": single["restore_s"],
+               "first_step_s": [max(o["step_s"][i] for o in first) for i in range(run.steps)],
+               "second_step_s": [max(o["step_s"][i] for o in second) for i in range(run.steps)],
+               "rank_peak_memory_gb": {"first": max(o["peak_memory_gb"] for o in first),
+                                       "second": max(o["peak_memory_gb"] for o in second)},
+               "restored_placements": second[0]["restored_placements"], "wall_s": elastic_wall,
+               "leaves_checked": len(second[0]["digests"]), "ckpt_codec_launches": first[0]["launches"]["ckpt_codec"]}
+    print(f"elastic {E.ARCH}: {E.FIRST_MESH} -> {run.second_mesh}, losses {elastic['first_losses']} then "
+          f"{elastic['second_losses']} (one process restoring the same checkpoint: {losses}); every rank's restored "
+          f"shard of {elastic['leaves_checked']} leaves equals the single process's slice; checkpoint "
+          f"{written / 1e9:.2f} GB, save {elastic['save_s']:.1f} s, restore {elastic['restore_s']:.1f} s", flush=True)
+    out = {"card": card, "ranks": math.prod(MESH_SHAPE), "mesh": list(MESH_SHAPE), "backend": "gloo",
+           "parent_gb_at_start": parent_gb, "train": train, "scans": scans, "elastic": elastic, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase, "cuts": mesh_cuts(), "tolerances": mesh_tolerances()}
+    assert tuple(out) == MESH_LINE_KEYS
+    print(json.dumps({"mesh": out}), flush=True)
     return out
 
 
@@ -2815,6 +3303,7 @@ def main() -> int:
     small_errs = small_kernel_checks(device)
 
     # -- 11. serving at full width -------------------------------------------
+    init_stream_check(device)
     found = serve_models(device)
 
     # -- 12. the codec kernel vs its plain version at small sizes ---------------
@@ -2833,21 +3322,26 @@ def main() -> int:
     # -- 16. four ranks on the card: compression, SP decode, EP MoE ------------
     parallel = parallel_phase(device, card)
 
-    # -- 17. the kernels line -------------------------------------------------
+    # -- 17. four ranks on the card: placed training, the elastic restore -----
+    mesh = mesh_phase(device, card)
+
+    # -- 18. the kernels line -------------------------------------------------
     rows = model_kernel_rows(found, small_errs)
     for row in rows:
         extra = campaign["launches"].get(row["name"], 0) + (
             TRAIN_STEPS * training["flash_attention_launches_per_step"] if row["name"] == "flash_attention" else 0)
         sp = parallel["sp_decode"]["flash_launches"] if row["name"] == "flash_attention" else 0
-        if extra or sp:
-            row["launches_by_path"] = {"serving": row["launches"], "training": extra}
-            if sp:
-                row["launches_by_path"]["sp_decode_prefill"] = sp
-            row["launches"] += extra + sp
-    codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"])
+        on_mesh = mesh["launches"].get(row["name"], 0)
+        row["launches_by_path"] = {"serving": row["launches"], "training": extra}
+        if sp:
+            row["launches_by_path"]["sp_decode_prefill"] = sp
+        row["launches_by_path"]["mesh"] = on_mesh
+        row["launches"] += extra + sp + on_mesh
+    codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"] + mesh["launches"]["ckpt_codec"])
+    codec["launches_by_path"] = {"campaign": campaign["launches"]["ckpt_codec"], "mesh": mesh["launches"]["ckpt_codec"]}
     print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
-    # -- 18. the result line ------------------------------------------------
+    # -- 19. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -37,14 +37,30 @@ order); a leaf is a tensor, a NumPy array or a scalar.
     trainer can quarantine the damaged snapshot and fall back to an older one
     (:meth:`CheckpointManager.quarantine` renames it to ``*.corrupt``).
 
-The JAX manager's ``shardings=`` (elastic placement onto a mesh) has no
-meaning on one card and is left out: a restored leaf lands on the device of
-its template leaf (a tensor's device; the CPU for a NumPy or meta template).
+  * **On a mesh** (the ranks of a process group, the JAX package's
+    multi-device arrays): a placed leaf (a DTensor) is gathered whole by
+    every rank (``full_tensor()``, a collective), one leaf at a time, and
+    rank 0 alone quantizes it and writes; the files are those of a
+    one-device checkpoint.  Every rank constructs the manager, saves and
+    restores together.  Each write (and :meth:`CheckpointManager.wait`,
+    since only rank 0's writer thread runs) ends with the ranks sharing
+    their outcome, a collective that is also the barrier: no rank lists or
+    restores a step before it exists, and when rank 0's write fails (a full
+    disk) every rank raises, the others a :class:`CheckpointWriteError`
+    naming it.
+  * **Elastic restore**: ``restore(..., shardings=)`` places each restored
+    leaf on the ambient mesh (:func:`repro_torch.parallel.use_compat_mesh`,
+    or ``mesh=``) with the given placements (what
+    :func:`repro_torch.parallel.shard_params` gives), which need not be the
+    mesh it was saved from: every rank reads and checks every leaf, then cuts
+    its own shard.  Without ``shardings`` a leaf lands where its template
+    leaf is: a placed template's mesh and placements, a tensor's device, the
+    CPU for a NumPy or meta template.
 
 Fault-injection sites (:mod:`repro_torch.faults`): ``ckpt.save`` fires per
 write (``raise`` = I/O failure, ``torn`` = a leaf file silently truncated
 after hashing, seen only at restore) and ``ckpt.restore`` per restore attempt
-(``raise`` = unreadable checkpoint), both keyed by step.
+(``raise`` = unreadable checkpoint), both keyed by step, alike on every rank.
 """
 
 from __future__ import annotations
@@ -61,10 +77,12 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import faults
 from repro_torch.checkpoint import tree as tree_lib
 from repro_torch.kernels.ckpt_codec import ops as codec
+from repro_torch.parallel import sharding as S
 
 #: Leaves the int8 codec quantizes: these dtypes, at least this many elements.
 QUANTIZED_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
@@ -97,6 +115,12 @@ class CheckpointCorruptionError(IOError):
         self.path = path
         self.reason = reason
         super().__init__(f"corrupt checkpoint step={step} ({path}): {reason}")
+
+
+class CheckpointWriteError(IOError):
+    """Another rank of the mesh failed its part of a checkpoint operation
+    (rank 0's write, or its rename of a quarantined step); carries that
+    rank's error as text."""
 
 
 def quantized(leaf, codec_name: str) -> bool:
@@ -139,10 +163,46 @@ def _snapshot(leaf, codec_name: str) -> _Snapshot:
     return _Snapshot(name, {"raw": arr})
 
 
-def _device_of(tmpl) -> torch.device:
+def _device_of(tmpl, mesh=None) -> torch.device:
+    """Where a restored leaf is built: its template's device (a placed
+    template's local one), else the device of the mesh it goes to, else the
+    CPU."""
+    if S.is_placed(tmpl):
+        tmpl = tmpl.to_local()
     if isinstance(tmpl, torch.Tensor) and tmpl.device.type != "meta":
         return tmpl.device
+    if mesh is not None and mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def _ranks() -> tuple[int, int]:
+    """``(rank, world size)`` of the running process group, ``(0, 1)`` without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _placement_leaves(template, shardings) -> list:
+    """The placements of ``shardings`` for each leaf of ``template``, in
+    :func:`tree_lib.flatten`'s order (``shardings`` has the template's nesting,
+    a tuple of placements where the template has a leaf)."""
+    out: list = []
+
+    def walk(x, sh):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], sh[k])
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(sh):
+                raise ValueError(f"{len(x)} entries against {len(sh)} placements")
+            for a, b in zip(x, sh):
+                walk(a, b)
+        elif x is not None:
+            out.append(tuple(sh))
+
+    walk(template, shardings)
+    return out
 
 
 class CheckpointManager:
@@ -162,10 +222,14 @@ class CheckpointManager:
         self.async_io = async_io
         self._thread: threading.Thread | None = None
         self._last_error: Exception | None = None
-        os.makedirs(root, exist_ok=True)
-        self._clean_tmp()
+        self.rank, self.world = _ranks()  # on a mesh every rank constructs the manager; rank 0 writes
+        self._on_rank0(self._make_root)
 
     # ------------------------------------------------------------------
+    def _make_root(self):
+        os.makedirs(self.root, exist_ok=True)
+        self._clean_tmp()
+
     def _clean_tmp(self):
         for d in os.listdir(self.root):
             if d.endswith(".tmp"):
@@ -188,43 +252,87 @@ class CheckpointManager:
         ``step_X.corrupt``, kept on disk as evidence); returns the new path."""
         src = os.path.join(self.root, f"step_{step:09d}")
         dst = src + ".corrupt"
-        if os.path.exists(dst):  # re-quarantine after a re-save of the step
-            shutil.rmtree(dst, ignore_errors=True)
-        os.replace(src, dst)
+
+        def move():
+            if os.path.exists(dst):  # re-quarantine after a re-save of the step
+                shutil.rmtree(dst, ignore_errors=True)
+            os.replace(src, dst)
+
+        self._on_rank0(move)  # on a mesh every rank calls it; rank 0 moves, the others wait
         return dst
 
     # ------------------------------------------------------------------
+    def _agree(self, err: Exception | None) -> Exception | None:
+        """On a mesh, every rank's outcome shared (a collective, so also a
+        barrier): a rank's own error, else another rank's as a
+        :class:`CheckpointWriteError`, else None.  So every rank raises or
+        none does."""
+        if self.world == 1:
+            return err
+        errs = [None] * self.world
+        dist.all_gather_object(errs, None if err is None else f"{type(err).__name__}: {err}")
+        if err is None:
+            failed = [(r, e) for r, e in enumerate(errs) if e is not None]
+            if failed:
+                err = CheckpointWriteError(f"rank {failed[0][0]} failed: {failed[0][1]}")
+        return err
+
+    def _on_rank0(self, fn) -> None:
+        """``fn()`` on rank 0 alone, then :meth:`_agree`."""
+        err = None
+        if self.rank == 0:
+            try:
+                fn()
+            except Exception as e:
+                err = e
+        err = self._agree(err)
+        if err is not None:
+            raise err
+
     def save(self, step: int, tree, extra: dict | None = None, *, block: bool = True) -> CheckpointMeta:
         """Snapshot ``tree`` (nested dicts / lists / tuples of tensors, arrays
-        or scalars) at ``step``."""
+        or scalars; placed leaves gathered whole) at ``step``."""
         self.wait()  # one outstanding async save at a time (double-buffer)
         t0 = time.monotonic()
         # synchronous part: quantize on the device, copy to the host (the training pause = t_c)
         leaves, treedef = tree_lib.flatten(tree)
-        host_leaves = [_snapshot(x, self.codec_name) for x in leaves]
+        host_leaves = [self._snapshot(x) for x in leaves]
         snap_time = time.monotonic() - t0
         meta_holder: dict = {}
 
         def write():
             try:
-                meta_holder["meta"] = self._write(step, host_leaves, treedef, extra or {}, snap_time)
+                if self.rank == 0:
+                    meta_holder["meta"] = self._write(step, host_leaves, treedef, extra or {}, snap_time)
+                else:  # the fault plan fires alike on every rank, so the ranks agree on which steps exist
+                    self._fire_save(step)
+                    meta_holder["meta"] = CheckpointMeta(step, self.codec_name, len(host_leaves), snap_time, 0,
+                                                         extra or {})
             except Exception as e:  # surfaced on the next wait()
                 self._last_error = e
 
         if block or not self.async_io:
             write()
-            if self._last_error:
-                err, self._last_error = self._last_error, None
+            err, self._last_error = self._agree(self._last_error), None
+            if err is not None:
                 raise err
             return meta_holder["meta"]
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
         return CheckpointMeta(step, self.codec_name, len(host_leaves), snap_time, 0, extra or {})
 
+    def _snapshot(self, leaf) -> _Snapshot | None:
+        """A leaf in host memory on rank 0 (None on the other ranks); a placed
+        leaf is gathered whole on every rank first."""
+        if S.is_placed(leaf):
+            leaf = leaf.full_tensor()
+        return _snapshot(leaf, self.codec_name) if self.rank == 0 else None
+
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+            self._last_error = self._agree(self._last_error)
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise err
@@ -234,9 +342,7 @@ class CheckpointManager:
         name = f"step_{step:09d}"
         tmp = os.path.join(self.root, name + ".tmp")
         final = os.path.join(self.root, name)
-        action = faults.current().fire("ckpt.save", key=step)
-        if action is not None and action.kind == "raise":
-            raise faults.InjectedFault(action)  # async saves surface this on wait()
+        action = self._fire_save(step)
         os.makedirs(tmp, exist_ok=True)
         files = []
         total = 0
@@ -276,17 +382,34 @@ class CheckpointManager:
         self._gc()
         return CheckpointMeta(step, self.codec_name, len(host_leaves), snap_time, total, extra)
 
+    @staticmethod
+    def _fire_save(step: int):
+        action = faults.current().fire("ckpt.save", key=step)
+        if action is not None and action.kind == "raise":
+            raise faults.InjectedFault(action)  # async saves surface this on wait()
+        return action
+
     def _gc(self):
         steps = self.steps()
         for s in steps[: -self.keep] if self.keep else []:
             shutil.rmtree(os.path.join(self.root, f"step_{s:09d}"), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, template, step: int | None = None) -> tuple:
+    def restore(self, template, step: int | None = None, *, shardings=None, mesh=None) -> tuple:
         """Restore into the structure of ``template`` (the same nesting as the
         saved tree; its leaves give the shapes and devices).  Returns
-        ``(tree, extra)`` with tensor leaves in the saved dtypes."""
+        ``(tree, extra)`` with tensor leaves in the saved dtypes.
+
+        ``shardings``: a tree of DTensor placements of the template's nesting
+        (:func:`repro_torch.parallel.shard_params` over its axes); each leaf
+        is then placed with them on ``mesh`` (the ambient mesh unless given),
+        every rank cutting its own shard of the leaf it read."""
         self.wait()
+        if shardings is not None:
+            mesh = mesh or S.active_abstract_mesh().device_mesh
+            if mesh is None:
+                raise ValueError("restore(shardings=) needs a mesh: use_compat_mesh(...) or mesh=")
+            mesh = S._as_abstract(mesh)._device_mesh()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -302,6 +425,9 @@ class CheckpointManager:
         leaves_t, treedef = tree_lib.flatten(template)
         if len(manifest["files"]) != len(leaves_t):
             raise ValueError(f"checkpoint has {len(manifest['files'])} leaves, template has {len(leaves_t)}")
+        where = [None] * len(leaves_t) if shardings is None else _placement_leaves(template, shardings)
+        if len(where) != len(leaves_t):
+            raise ValueError(f"{len(where)} placements for {len(leaves_t)} leaves")
         out = []
         for i, (entry, tmpl) in enumerate(zip(manifest["files"], leaves_t)):
             path = os.path.join(d, entry["file"])
@@ -312,7 +438,7 @@ class CheckpointManager:
                 raise CheckpointCorruptionError(step, path, f"missing leaf file: {e}") from e
             if hashlib.sha256(data).hexdigest() != entry["sha256"]:
                 raise CheckpointCorruptionError(step, path, "leaf sha256 mismatch (torn write?)")
-            dev = _device_of(tmpl)
+            dev = _device_of(tmpl, mesh)
             try:
                 dtype = _TORCH_DTYPES[entry["dtype"]]
                 if path.endswith(".npz"):
@@ -333,5 +459,9 @@ class CheckpointManager:
             want = tuple(getattr(tmpl, "shape", ()))
             if tuple(arr.shape) != want:
                 raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} != template {want}")
+            if where[i] is not None:
+                arr = S.place(arr, mesh, where[i])
+            elif S.is_placed(tmpl):
+                arr = S.place(arr, tmpl.device_mesh, tuple(tmpl.placements))
             out.append(arr)
         return treedef.unflatten(out), manifest["extra"]

@@ -27,7 +27,7 @@ _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
-__all__ = ["fold_in", "hash_words", "prng_key", "split", "uniform"]
+__all__ = ["fold_in", "hash_words", "prng_key", "random_bits", "split", "uniform"]
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -78,3 +78,41 @@ def uniform(key: tuple[int, int], shape) -> torch.Tensor:
     y0, y1 = hash_words(key, i >> 32, i & _MASK32)
     bits = ((y0 ^ y1) >> 9) | 0x3F800000  # 23 mantissa bits under the exponent of 1.0
     return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(tuple(shape))
+
+
+def _rotl32_(v: torch.Tensor, r: int, tmp: torch.Tensor) -> torch.Tensor:
+    """``v`` rotated left by ``r`` in place, as uint32 bits held in int32
+    (``>>`` of an int32 is arithmetic: the sign bits shifted in are masked off)."""
+    torch.bitwise_right_shift(v, 32 - r, out=tmp)
+    tmp.bitwise_and_((1 << r) - 1)
+    return v.bitwise_left_shift_(r).bitwise_or_(tmp)
+
+
+def _i32(v: int) -> int:
+    """A uint32 value as the int32 of the same bits."""
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def random_bits(key: tuple[int, int], start: int, count: int, device=None) -> torch.Tensor:
+    """The 32 random bits of elements ``[start, start + count)`` of a
+    ``jax.random`` draw under ``key`` (partitionable threefry: element ``i``
+    hashes the counter ``i`` and XORs the two words), as int32 on
+    ``device``.  The same words as :func:`hash_words`, in int32 tensor ops
+    that wrap (a quarter of the int64 version's traffic), so a big draw is
+    cheap on the card."""
+    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    x1 = (i & _MASK32).to(torch.int32)  # the low word's bits
+    x0 = (i >> 32).to(torch.int32)
+    del i
+    k0, k1 = key
+    ks = (_i32(k0), _i32(k1), _i32(k0 ^ k1 ^ _PARITY))
+    x0.add_(ks[0])
+    x1.add_(ks[1])
+    tmp = torch.empty_like(x0)
+    for r_i in range(5):
+        for r in _ROTATIONS[r_i % 2]:
+            x0.add_(x1)
+            _rotl32_(x1, r, tmp).bitwise_xor_(x0)
+        x0.add_(ks[(r_i + 1) % 3])
+        x1.add_(_i32((ks[(r_i + 2) % 3] + r_i + 1) & _MASK32))
+    return x0.bitwise_xor_(x1)

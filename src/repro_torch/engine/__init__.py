@@ -18,6 +18,7 @@
 
 from repro_torch.core.schemes import ALL_SCHEMES
 from repro_torch.engine.base import (
+    PARITY_FIELDS,
     Engine,
     EngineResult,
     PhaseTimings,
@@ -51,6 +52,7 @@ __all__ = [
     "BID_LIMITED_SCHEMES",
     "COMPARED",
     "COST_RTOL",
+    "PARITY_FIELDS",
     "CellMismatch",
     "Engine",
     "EngineResult",

@@ -30,6 +30,11 @@ from repro_torch.engine.scenario import MarketCell, Scenario
 from repro_torch.obs.telemetry import Span, Telemetry
 
 
+#: SimResult fields every backend must agree on, cell for cell (the JAX package's
+#: ``PARITY_FIELDS``; :data:`repro_torch.engine.parity.COMPARED` holds more).
+PARITY_FIELDS = ("completed", "completion_time", "cost", "n_checkpoints", "n_kills")
+
+
 @dataclasses.dataclass(frozen=True)
 class SchemePhases:
     """One scheme's wall-time split inside an engine run (the fused sweep

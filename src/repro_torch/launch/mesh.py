@@ -17,10 +17,11 @@ import torch.distributed as dist
 from repro_torch.parallel.sharding import make_compat_mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """16 x 16 = 256 ranks a pod (``data``, ``model``); two pods, 512 ranks
     (``pod``, ``data``, ``model``), multi-pod.  Needs a process group of that
-    world size (``device_type`` as :func:`make_compat_mesh` takes it)."""
+    world size (``device_type`` as :func:`make_compat_mesh` takes it: the card
+    unless ``"cpu"``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_compat_mesh(shape, axes, device_type=device_type)

@@ -5,6 +5,12 @@ params, activations)`` in the JAX package's layouts (weights such as ``wq (d,
 H, Dh)``, activations ``(B, S, H, Dh)``), with each init function beside its
 apply function.  Prefill attention goes through the flash-attention op (the
 CUDA kernel on the card); ``impl="plain"`` asks for the plain version.
+
+The activations carry the JAX package's ``shard(...)`` annotations at its
+places: a no-op on plain tensors, a redistribution of a DTensor (parameters
+and batch placed on a mesh by :func:`repro_torch.parallel.sharding.place`) to
+the placements of its logical axes.  What the layers make themselves
+(positions, RoPE's tables) is made ``Replicate()`` on the input's mesh then.
 """
 
 from __future__ import annotations
@@ -16,7 +22,9 @@ from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
 from repro_torch.parallel import sp_decode
-from repro_torch.parallel.sharding import current_rules
+from repro_torch.parallel.sharding import (
+    contiguous_grad, current_rules, is_placed, keep_shards, local_call, replicated_like, shard, split_index,
+)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -83,7 +91,8 @@ def init_attention(b: ParamBuilder, name: str, cfg: ModelConfig):
 def project_heads(x, w):
     """``einsum("bsd,dhe->bshe")``: x ``(B, S, d)`` times w ``(d, H, E)``."""
     b, s, _ = x.shape
-    return (x @ w.reshape(w.shape[0], -1)).reshape(b, s, w.shape[1], w.shape[2])
+    out = (x @ w.reshape(w.shape[0], -1)).reshape(b, s, w.shape[1], w.shape[2])
+    return contiguous_grad(out) if is_placed(out) else out
 
 
 def merge_heads(o, w):
@@ -97,20 +106,28 @@ def _qkv(cfg: ModelConfig, params, name: str, x, positions):
     k = project_heads(x, params[f"{name}.wk"])
     v = project_heads(x, params[f"{name}.wv"])
     if not cfg.learned_pos:
-        cos, sin = rope_frequencies(cfg, positions)
+        cos, sin = (replicated_like(t, x) for t in rope_frequencies(cfg, positions))
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
 def apply_attention(cfg: ModelConfig, params, name: str, x, *, causal=True, window=0, q_block=1024,
                     kv_block=1024, impl=None):
     """Full-sequence (prefill) attention.  Returns ``(out, (k, v))``."""
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(x.shape[1], device=_device(x))
     q, k, v = _qkv(cfg, params, name, x, positions)
     o = attn_ops.flash_attention(
         q, k, v, causal=causal, window=window, q_block=q_block, kv_block=kv_block, impl=impl
     )
-    return merge_heads(o, params[f"{name}.wo"]), (k, v)
+    return shard(merge_heads(o, params[f"{name}.wo"]), "batch", "seq", "embed"), (k, v)
+
+
+def _device(x) -> torch.device:
+    """The device of ``x``'s storage (a DTensor's local shard's)."""
+    return x.to_local().device if hasattr(x, "to_local") else x.device
 
 
 def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, window=0):
@@ -225,7 +242,8 @@ def _act(cfg: ModelConfig, x):
 def apply_mlp(cfg: ModelConfig, params, name: str, x):
     up = x @ params[f"{name}.wi_up"]
     h = _act(cfg, x @ params[f"{name}.wi_gate"]) * up if cfg.gated_mlp else _act(cfg, up)
-    return h @ params[f"{name}.wo"]
+    h = shard(h, "batch", "seq", "mlp")
+    return shard(h @ params[f"{name}.wo"], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +263,40 @@ def init_embedding(b: ParamBuilder, cfg: ModelConfig):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens, position_offset=0):
-    x = params["embed.tokens"][tokens.long()]
+    table = params["embed.tokens"]
+    x = _split_embedding(tokens.long(), table) if is_placed(table) else F.embedding(tokens.long(), table)
     if cfg.learned_pos:
-        pos = torch.arange(tokens.shape[1], device=tokens.device) + position_offset
-        x = x + params["embed.positions"][pos][None]
-    return x
+        pos = replicated_like(torch.arange(tokens.shape[1], device=_device(tokens)) + position_offset, tokens)
+        x = x + F.embedding(pos, params["embed.positions"])[None]
+    return shard(x, "batch", "seq", "embed")
+
+
+def _split_embedding(ids, table):
+    """``F.embedding`` of placed ids in a placed table that may be split over
+    the vocab: each rank looks up the ids in its block of rows (zeros for the
+    others) and the ranks' rows are summed (``Partial``), so the table is
+    never gathered.  (DTensor's own split lookup gives a masked partial that
+    cannot take a partial cotangent back.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    table = keep_shards(table, (0,))
+    mesh, t_pl = table.device_mesh, tuple(table.placements)
+    ids_pl = tuple(p if p == Shard(0) and t == Replicate() else Replicate()
+                   for p, t in zip(keep_shards(ids, (0,)).placements, t_pl))
+    ids = ids.redistribute(mesh, ids_pl)
+    index, count = split_index(table, 0)
+    width = table.shape[0] // count
+    lo = index * width
+
+    def local(i, t):
+        inside = (i >= lo) & (i < lo + width)
+        x = F.embedding(torch.clamp(i - lo, 0, width - 1), t)
+        return torch.where(inside[..., None], x, torch.zeros_like(x))
+
+    out = tuple(Partial() if t == Shard(0) else p for p, t in zip(ids_pl, t_pl))
+    # the table's gradient is each rank's part where the ids are split and the table is not
+    t_grad = tuple(Partial() if p == Shard(0) else t for p, t in zip(ids_pl, t_pl))
+    return local_call(local, (ids, table), out, (ids_pl, t_grad))
 
 
 def unembed(cfg: ModelConfig, params, x):
@@ -257,4 +304,4 @@ def unembed(cfg: ModelConfig, params, x):
     logits = x @ w
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return shard(logits, "batch", "seq", "vocab")

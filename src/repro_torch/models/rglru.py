@@ -16,6 +16,7 @@ from repro_torch.kernels.rglru_scan.ref import RG_LRU_C
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
 from repro_torch.models.ssm import causal_conv, conv_tail, softplus
+from repro_torch.parallel.sharding import shard
 
 
 def init_rglru_block(b: ParamBuilder, name: str, cfg: ModelConfig):
@@ -33,8 +34,9 @@ def init_rglru_block(b: ParamBuilder, name: str, cfg: ModelConfig):
 
 def gates(cfg: ModelConfig, params, name: str, x_act):
     """``(log_a, i)`` of the recurrence, both float32."""
-    r = torch.sigmoid((x_act @ params[f"{name}.w_a"]).float())
-    i = torch.sigmoid((x_act @ params[f"{name}.w_i"]).float())
+    # each gate summed over the split rnn columns once, back onto them (a no-op on plain tensors)
+    r = torch.sigmoid(shard(x_act @ params[f"{name}.w_a"], "batch", "seq", "rnn").float())
+    i = torch.sigmoid(shard(x_act @ params[f"{name}.w_i"], "batch", "seq", "rnn").float())
     lam = softplus(params[f"{name}.Lambda"].float())
     log_a = -RG_LRU_C * lam * r
     return log_a, i
@@ -57,12 +59,14 @@ def apply_rglru_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     ``(out, cache)`` with the decode cache (conv tail and last state)."""
     xb = x @ params[f"{name}.in_x"]
     gate = x @ params[f"{name}.in_gate"]
+    xb = shard(xb, "batch", "seq", "rnn")
     x_conv, _ = causal_conv(xb, params[f"{name}.conv_w"], params[f"{name}.conv_b"])
     x_act = F.silu(x_conv)
     log_a, i = gates(cfg, params, name, x_act)
     h, h_last = rglru_ops.rglru_scan(log_a, i * x_act.float(), impl=impl)
-    y = h.to(x.dtype) * F.silu(gate)
-    return y @ params[f"{name}.out_proj"], {"conv": conv_tail(xb, cfg.ssm_conv), "h": h_last}
+    y = shard(h.to(x.dtype) * F.silu(gate), "batch", "seq", "rnn")
+    out = shard(y @ params[f"{name}.out_proj"], "batch", "seq", "embed")
+    return out, {"conv": conv_tail(xb, cfg.ssm_conv), "h": h_last}
 
 
 def apply_rglru_decode(cfg: ModelConfig, params, name: str, x, cache):

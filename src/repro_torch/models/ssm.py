@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
+from repro_torch.parallel.sharding import shard
 
 
 def softplus(x):
@@ -67,7 +68,9 @@ def ssm_inputs(cfg: ModelConfig, params, name: str, x_act):
     """x_act ``(B, S, D)`` -> ``(dtA, dBx, C)`` of the scan: dtA and dBx
     ``(B, S, D, N)`` float32, C ``(B, S, N)`` in x_act's dtype."""
     n, r = cfg.ssm_state, cfg.dt_rank
-    proj = x_act @ params[f"{name}.x_proj"]
+    # summed over the channels once here, before it is cut into dt_low, B and C (a
+    # no-op on plain tensors; on placed ones the split channels leave a partial sum)
+    proj = shard(x_act @ params[f"{name}.x_proj"], "batch", "seq", None)
     dt_low, bmat, cmat = proj[..., :r], proj[..., r : r + n], proj[..., r + n :]
     dt = dt_low @ params[f"{name}.dt_proj"] + params[f"{name}.dt_bias"]
     dt = softplus(dt.float())  # (B, S, D)
@@ -93,14 +96,16 @@ def apply_mamba_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     """Full-sequence Mamba mixer of a normed input ``(B, S, d)``.  Returns
     ``(out, cache)`` with the decode cache (conv tail and last state)."""
     x_in, z = torch.chunk(x @ params[f"{name}.in_proj"], 2, dim=-1)
+    x_in = shard(x_in, "batch", "seq", "mlp")
     x_conv, _ = causal_conv(x_in, params[f"{name}.conv_w"], params[f"{name}.conv_b"])
     x_act = F.silu(x_conv)
     dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act)
     y, h_last = ssm_ops.ssm_scan(dtA, dBx, cmat.contiguous(), impl=impl)
     del dtA, dBx
     y = y + params[f"{name}.D"] * x_act.float()
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ params[f"{name}.out_proj"], {"conv": conv_tail(x_in, cfg.ssm_conv), "h": h_last}
+    y = shard(y.to(x.dtype) * F.silu(z), "batch", "seq", "mlp")
+    out = shard(y @ params[f"{name}.out_proj"], "batch", "seq", "embed")
+    return out, {"conv": conv_tail(x_in, cfg.ssm_conv), "h": h_last}
 
 
 def apply_mamba_decode(cfg: ModelConfig, params, name: str, x, cache):

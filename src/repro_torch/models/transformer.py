@@ -27,13 +27,30 @@ the plain PyTorch versions of the prefill kernels (flash attention, SSM scan,
 RG-LRU scan) where the kernels would run.  Decode is plain on every device,
 as in the JAX package.  The cache's ``len`` is a Python int.
 
-Under a mesh (:func:`repro_torch.parallel.use_compat_mesh`) every process is
-one rank and holds its local shard of each tensor: its rows of the batch, the
-whole parameters (a MoE layer with ``moe_impl="ep"`` runs its rank's experts:
-:mod:`repro_torch.models.moe_ep`), and, when the rules put ``kv_seq`` on
-``model``, its sequence slice of every attention cache that is not circular
-(:func:`init_cache` and :func:`prefill` make it; :func:`decode_step` merges
-the ranks' attention: :mod:`repro_torch.parallel.sp_decode`).
+Under a mesh (:func:`repro_torch.parallel.use_compat_mesh`) a process is one
+rank, in one of two ways:
+
+  * Placed (the JAX package's GSPMD): the parameters and the batch are
+    DTensors placed by the logical-axes rules
+    (:func:`repro_torch.parallel.sharding.place` with
+    :func:`~repro_torch.parallel.sharding.shard_params`' placements; tokens
+    and labels by ``("batch", "seq")``).  :func:`forward` and
+    :func:`loss_fn` run on them for the dense, hybrid and ssm families: each
+    layer first gathers its parameters over the ``fsdp`` axes (ZeRO-3: one
+    redistribution, whose backward is the reduce-scatter of their
+    gradients), the layers' ``shard`` annotations place the activations,
+    DTensor inserts the collectives, and the kernels run on each rank's
+    local shards.  The loss is the mean over the global batch.  MoE,
+    enc-dec and VLM models on placed tensors raise ``NotImplementedError``,
+    as do prefill and decode.
+  * Explicit (``shard_map``): plain tensors, each rank's local shard: its
+    rows of the batch, the whole parameters (a MoE layer with
+    ``moe_impl="ep"`` runs its rank's experts:
+    :mod:`repro_torch.models.moe_ep`), and, when the rules put ``kv_seq`` on
+    ``model``, its sequence slice of every attention cache that is not
+    circular (:func:`init_cache` and :func:`prefill` make it;
+    :func:`decode_step` merges the ranks' attention:
+    :mod:`repro_torch.parallel.sp_decode`).
 
 Training differentiates through the kernels: each runs inside a
 ``torch.autograd.Function`` whose backward recomputes its plain version (see
@@ -49,6 +66,7 @@ import functools
 import torch
 from torch.utils import checkpoint as activation_checkpoint
 
+from repro_torch.data import threefry
 from repro_torch.engine.base import resolve_device
 from repro_torch.kernels import check_impl
 from repro_torch.kernels.flash_attention import ref as attn_ref
@@ -59,8 +77,11 @@ from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder, model_dtype
+from repro_torch.parallel import sharding as SH
 
 FAMILIES = ("dense", "vlm", "moe", "encdec", "hybrid", "ssm")
+#: The families whose forward and loss run on placed (DTensor) parameters.
+PLACED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -84,9 +105,11 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 def _device(params: dict, device) -> torch.device:
     """The device an entry point runs on (the GPU unless ``device`` names
-    another); raises unless the parameters lie there."""
+    another); raises unless the parameters lie there (a placed parameter's
+    local shard)."""
     dev = resolve_device(device)
-    have = params["embed.tokens"].device
+    table = params["embed.tokens"]
+    have = (table.to_local() if SH.is_placed(table) else table).device
     if have.type != dev.type or (dev.index is not None and have.index != dev.index):
         raise ValueError(f"the parameters are on {have}, the call runs on {dev}")
     return have
@@ -129,8 +152,10 @@ def _init_layer(cfg: ModelConfig, kind: str, b: ParamBuilder) -> ParamBuilder:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
-    """Random parameters on ``device`` from a ``torch.Generator`` seeded with
-    ``seed`` (``device="meta"`` gives their shapes and dtypes only)."""
+    """Random parameters on ``device``: the JAX package's ``init_params(cfg,
+    PRNGKey(seed))``, drawn in its stream (see
+    :mod:`repro_torch.models.params`); ``device="meta"`` gives their shapes
+    and dtypes only."""
     return _init(cfg, seed, device)[0]
 
 
@@ -149,18 +174,21 @@ def abstract_params(cfg: ModelConfig) -> dict:
 def _init(cfg: ModelConfig, seed: int, device) -> tuple[dict, dict]:
     kinds = layer_kinds(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
-    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+    # the JAX package's keys: split(PRNGKey(seed), n_layers + 3) -> embeddings, each layer, ..., the encoder
+    keys = [None] * (cfg.n_layers + 3) if dev.type == "meta" else threefry.split(threefry.prng_key(seed),
+                                                                                  cfg.n_layers + 3)
     dtype = model_dtype(cfg)
-    eb = ParamBuilder(gen, dev, dtype)
+    eb = ParamBuilder(keys[0], dev, dtype)
     L.init_embedding(eb, cfg)
     L.init_norm(eb, "final_norm", cfg)
     params, axes = dict(eb.params), dict(eb.axes)
-    layers = [_init_layer(cfg, kind, ParamBuilder(gen, dev, dtype)) for kind in kinds]
+    layers = [_init_layer(cfg, kind, ParamBuilder(keys[i + 1], dev, dtype)) for i, kind in enumerate(kinds)]
     params["layers"], axes["layers"] = [b.params for b in layers], [b.axes for b in layers]
     if cfg.family == "encdec":
-        enc = [_init_layer(cfg, "encoder", ParamBuilder(gen, dev, dtype)) for _ in range(cfg.encoder_layers)]
+        enc_keys = [None] * cfg.encoder_layers if dev.type == "meta" else threefry.split(keys[-1], cfg.encoder_layers)
+        enc = [_init_layer(cfg, "encoder", ParamBuilder(k, dev, dtype)) for k in enc_keys]
         params["encoder"], axes["encoder"] = [b.params for b in enc], [b.axes for b in enc]
-        nb = ParamBuilder(gen, dev, dtype)
+        nb = ParamBuilder(keys[-2], dev, dtype)
         L.init_norm(nb, "encoder_norm", cfg)
         params.update(nb.params)
         axes.update(nb.axes)
@@ -172,11 +200,33 @@ def _init(cfg: ModelConfig, seed: int, device) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
+def _fsdp_gather(p: dict) -> dict:
+    """A layer's placed parameters whole over the data axes (ZeRO-3's gather
+    of the ``fsdp`` axis): every ``Shard`` on a mesh dimension that the
+    rules' ``fsdp`` axes name becomes ``Replicate()``, the ``model`` split
+    stays.  One redistribution per leaf; its backward reduce-scatters the
+    gradient back to the leaf's own placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    fsdp = SH.current_rules().get("fsdp") or ()
+    fsdp = (fsdp,) if isinstance(fsdp, str) else tuple(fsdp)
+    out = {}
+    for name, w in p.items():
+        names = w.device_mesh.mesh_dim_names
+        want = tuple(Replicate() if isinstance(pl, Shard) and names[m] in fsdp else pl
+                     for m, pl in enumerate(w.placements))
+        out[name] = w if want == tuple(w.placements) else w.redistribute(w.device_mesh, want)
+    return out
+
+
 def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, memory=None, q_block, kv_block, impl):
     """One layer over the whole sequence.  Returns ``(x, state, aux)``: the
     mixer's decode cache (Mamba / RG-LRU), the attention's ``(k, v)`` (a
     decoder adds its cross-attention's ``(k, v)`` over ``memory``, the
-    encoder's output), and a MoE layer's aux (else None)."""
+    encoder's output), and a MoE layer's aux (else None).  Placed parameters
+    are gathered over the ``fsdp`` axes first (:func:`_fsdp_gather`)."""
+    if SH.is_placed(x):
+        p = _fsdp_gather(p)
     if kind == "mamba":
         h, state = S.apply_mamba_prefill(cfg, p, "mixer", L.apply_norm(cfg, p, "norm", x), impl=impl)
         return x + h, state, None
@@ -229,7 +279,7 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict, dev):
     """Token embeddings; a VLM's ``batch["vision_embeds"] (B, Tv, d)`` replace
     them where ``batch["vision_mask"] (B, S)`` is set, the i-th set position of
     a row taking the i-th embedding (the frontend is stubbed, as there)."""
-    x = L.embed_tokens(cfg, params, torch.as_tensor(batch["tokens"], device=dev))
+    x = L.embed_tokens(cfg, params, _on(batch["tokens"], dev))
     if cfg.family == "vlm" and "vision_embeds" in batch:
         ve = torch.as_tensor(batch["vision_embeds"], device=dev).to(x.dtype)
         mask = torch.as_tensor(batch["vision_mask"], device=dev).bool()
@@ -237,6 +287,23 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict, dev):
         spliced = torch.gather(ve, 1, idx[..., None].expand(-1, -1, ve.shape[2]))
         x = torch.where(mask[..., None], spliced, x)
     return x
+
+
+def _on(x, dev):
+    """A batch entry as a tensor on ``dev`` (a placed one as it is)."""
+    return x if SH.is_placed(x) else torch.as_tensor(x, device=dev)
+
+
+def _check_placed(cfg: ModelConfig, params: dict, what: str) -> bool:
+    """Are the parameters placed (DTensors)?  Raises for what does not run
+    placed yet: another family than :data:`PLACED_FAMILIES`, and ``what`` when
+    it is not a forward."""
+    if not SH.is_placed(params["embed.tokens"]):
+        return False
+    if cfg.family not in PLACED_FAMILIES or what != "forward":
+        thing = f"a {cfg.family} model" if cfg.family not in PLACED_FAMILIES else what
+        raise NotImplementedError(f"{thing} on placed (DTensor) parameters is not ported yet (ROADMAP.md queue A)")
+    return True
 
 
 def _encode(cfg: ModelConfig, params: dict, frames, dev, *, q_block, kv_block, impl):
@@ -257,6 +324,9 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, q_block: int = 1024
     mean ``load_balance_loss`` and ``drop_frac`` (float32 zeros without)."""
     check_impl(impl)
     dev = _device(params, device)
+    placed = _check_placed(cfg, params, "forward")
+    if placed and not SH.is_placed(batch["tokens"]):
+        raise ValueError("placed parameters take a placed batch (tokens by ('batch', 'seq'))")
     kw = dict(q_block=q_block, kv_block=kv_block, impl=impl)
     x = _embed_inputs(cfg, params, batch, dev)
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
@@ -292,6 +362,8 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **fw_kwargs):
     with metrics ``loss``, ``nll``, ``load_balance_loss`` and ``drop_frac``.
     ``fw_kwargs`` go to :func:`forward`."""
     logits, aux = _forward(cfg, params, batch, **fw_kwargs)
+    if SH.is_placed(logits):
+        return _placed_loss(logits, batch["labels"], aux)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     valid = labels >= 0
     labels_c = torch.clamp_min(labels, 0).long()
@@ -303,6 +375,46 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **fw_kwargs):
     if cfg.family == "moe":
         loss = loss + cfg.router_aux_weight * aux["load_balance_loss"]
     return loss, {"loss": loss, "nll": nll.sum() / n_valid, **aux}
+
+
+def _placed_loss(logits, labels, aux):
+    """:func:`loss_fn`'s loss on placed logits ``(B, S, V_pad)`` and labels:
+    the mean over the global batch's valid labels, a ``Replicate()`` scalar
+    (so its gradient starts alike on every rank)."""
+    from torch.distributed.tensor import Replicate
+
+    valid = labels >= 0
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = _label_logits(logits, torch.clamp_min(labels, 0).long()).float()
+    nll = (lse - label_logit) * valid.float()
+    n_valid = torch.clamp_min(valid.sum(), 1)
+    whole = [Replicate()] * logits.device_mesh.ndim
+    loss = (nll.sum() / n_valid).redistribute(logits.device_mesh, whole)
+    return loss, {"loss": loss, "nll": loss, **aux}
+
+
+def _label_logits(logits, labels):
+    """``logits[b, s, labels[b, s]]`` of placed logits split over the vocab:
+    each rank looks up the labels that fall in its block of the vocab (zero
+    for the others), and the ranks' results are summed (``Partial``).  (A
+    ``gather`` of DTensor would all-gather the logits, or make a masked
+    partial it cannot reduce.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    logits = SH.keep_shards(logits, (0, 2))
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    labels = labels.redistribute(mesh, tuple(p if p == Shard(0) else Replicate() for p in pl))
+    index, count = SH.split_index(logits, 2)
+    width = logits.shape[2] // count
+    lo = index * width
+
+    def local(lg, lb):
+        inside = (lb >= lo) & (lb < lo + width)
+        got = torch.gather(lg, -1, torch.clamp(lb - lo, 0, width - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    out = tuple(Partial() if p == Shard(2) else p for p in pl)
+    return SH.local_call(local, (logits, labels), out)
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +481,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_bloc
     ``p % window`` (decode's circular indexing)."""
     check_impl(impl)
     dev = _device(params, device)
+    _check_placed(cfg, params, "prefill")
     kw = dict(q_block=q_block, kv_block=kv_block, impl=impl)
     s = torch.as_tensor(batch["tokens"]).shape[1]
     dtype = model_dtype(cfg)
@@ -403,6 +516,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, device=N
     """One decode step: tokens ``(B, 1)`` -> ``(logits (B, 1, V_pad), new
     cache)``.  The attention caches' k / v are updated in place."""
     dev = _device(params, device)
+    _check_placed(cfg, params, "decode")
     pos = cache["len"]
     x = L.embed_tokens(cfg, params, torch.as_tensor(tokens, device=dev), position_offset=pos)
     new_caches = []

@@ -8,6 +8,13 @@ clipped to a global norm.  The arithmetic follows
 :func:`repro.optim.adamw.adamw_update` operation for operation; the bias
 corrections ``1 - b ** step`` are taken in float32, as JAX's weak types give
 them, not as Python float64.  The update runs under ``torch.no_grad()``.
+
+The update is element by element, so each leaf is updated in blocks of
+:data:`UPDATE_ELEMENTS` (the same bits as the whole leaf at once, with a
+block's float32 temporaries).  Placed leaves (DTensors) are updated on their
+local shards: a parameter, its gradient and its moments must share
+placements, the moments and the new parameters keep them, and the global norm
+is one value every rank holds.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import dataclasses
 import torch
 
 from repro_torch.checkpoint import tree as tree_lib
+from repro_torch.parallel.sharding import is_placed, replicated_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +38,11 @@ class AdamWConfig:
     moment_dtype: str = "float32"  # float32 | bfloat16
 
 
+#: Elements of a leaf updated at a time: a step's float32 temporaries are a few blocks
+#: of this size (256 MB each), not a few copies of the biggest leaf.
+UPDATE_ELEMENTS = 1 << 26
+
+
 def _map(fn, tree):
     leaves, treedef = tree_lib.flatten(tree)
     return treedef.unflatten([fn(x) for x in leaves])
@@ -37,9 +50,10 @@ def _map(fn, tree):
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     dt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
-    step = torch.zeros((), dtype=torch.int32, device=tree_lib.leaves(params)[0].device)
-    return {"mu": _map(zeros, params), "nu": _map(zeros, params), "step": step}
+    zeros = lambda p: torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)  # noqa: E731
+    first = tree_lib.leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=(first.to_local() if is_placed(first) else first).device)
+    return {"mu": _map(zeros, params), "nu": _map(zeros, params), "step": replicated_like(step, first)}
 
 
 def opt_state_axes(param_axes) -> dict:
@@ -49,8 +63,10 @@ def opt_state_axes(param_axes) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares (a
+    placed leaf's whole sum, a plain tensor)."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)]
+    sums = [s.full_tensor() if is_placed(s) else s for s in sums]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -63,13 +79,14 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step.  Returns ``(new_params, new_state, metrics)`` with
     metrics ``grad_norm`` and ``lr`` (float32 scalars)."""
     step = state["step"] + 1
-    dev = step.device
+    step_local = step.to_local() if is_placed(step) else step
+    dev = step_local.device
     gnorm = global_norm(grads)
     if cfg.grad_clip:
         clip = torch.minimum(_f32(1.0, dev), _f32(cfg.grad_clip, dev) / torch.maximum(gnorm, _f32(1e-9, dev)))
     else:
         clip = _f32(1.0, dev)
-    stepf = step.to(torch.float32)
+    stepf = step_local.to(torch.float32)
     b1c = 1.0 - torch.pow(_f32(cfg.b1, dev), stepf)
     b2c = 1.0 - torch.pow(_f32(cfg.b2, dev), stepf)
     lr = torch.as_tensor(cfg.lr * lr_scale, dtype=torch.float32, device=dev)
@@ -78,7 +95,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
     one_b1, one_b2 = _f32(1 - cfg.b1, dev), _f32(1 - cfg.b2, dev)
     eps, wd = _f32(cfg.eps, dev), _f32(cfg.weight_decay, dev)
 
-    def upd(p, g, mu, nu):
+    def upd_block(p, g, mu, nu):
         # the JAX expression tree, with the in-place operations on temporaries
         # only (each rounds exactly as its out-of-place form); the inputs are
         # left as they are
@@ -89,6 +106,31 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
         delta = (mu32 / b1c).div_(torch.sqrt(nu32 / b2c).add_(eps)).add_(wd * p.float())
         new_p = p.float() - delta.mul_(lr)  # p.float() is p itself for a float32 p: no in-place here
         return new_p.to(p.dtype), mu32.to(mu.dtype), nu32.to(nu.dtype)
+
+    def upd(p, g, mu, nu):
+        # element by element, so a leaf goes in blocks of UPDATE_ELEMENTS (the same bits), and a
+        # placed leaf on its local shards (the four share placements)
+        placed = is_placed(p)
+        if placed and not tuple(p.placements) == tuple(g.placements) == tuple(mu.placements) == tuple(
+                nu.placements):
+            raise ValueError(f"placements differ: parameter {p.placements}, gradient {g.placements}, "
+                             f"moments {mu.placements} / {nu.placements}")
+        local = [x.to_local() if placed else x for x in (p, g, mu, nu)]
+        if local[0].numel() <= UPDATE_ELEMENTS:  # one block: its results are the outputs
+            outs = upd_block(*local)
+        else:
+            outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (local[0], local[2], local[3])]
+            flat = [x.reshape(-1) for x in local]
+            for i in range(0, flat[0].numel(), UPDATE_ELEMENTS):
+                block = upd_block(*(x[i:i + UPDATE_ELEMENTS] for x in flat))
+                for o, b in zip(outs, block):
+                    o.view(-1)[i:i + UPDATE_ELEMENTS].copy_(b)
+        if placed:
+            from torch.distributed.tensor import DTensor
+
+            outs = [DTensor.from_local(o, p.device_mesh, p.placements, run_check=False, shape=p.shape,
+                                       stride=p.stride()) for o in outs]
+        return tuple(outs)
 
     flat_p, tdef = tree_lib.flatten(params)
     flat_g = tree_lib.leaves(grads)

@@ -1,5 +1,6 @@
-"""Distribution substrate: mesh conventions, logical-axis sharding rules and
-the explicit sequence-parallel decode (the port of :mod:`repro.parallel`)."""
+"""Distribution substrate: mesh conventions, logical-axis sharding rules, the
+placement of whole tensors by them (DTensor), and the explicit
+sequence-parallel decode (the port of :mod:`repro.parallel`)."""
 
 from repro_torch.parallel.sharding import (
     DEFAULT_RULES,
@@ -8,8 +9,11 @@ from repro_torch.parallel.sharding import (
     active_abstract_mesh,
     axis_rules,
     current_rules,
+    gather,
+    is_placed,
     logical_sharding,
     make_compat_mesh,
+    place,
     shard,
     shard_params,
     use_compat_mesh,
@@ -22,8 +26,11 @@ __all__ = [
     "active_abstract_mesh",
     "axis_rules",
     "current_rules",
+    "gather",
+    "is_placed",
     "logical_sharding",
     "make_compat_mesh",
+    "place",
     "shard",
     "shard_params",
     "use_compat_mesh",

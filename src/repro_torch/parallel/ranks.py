@@ -12,12 +12,16 @@ real.  Each rank runs with one intra-op thread.  ``fn`` must be importable
 starts, and a pickle larger than a pipe's buffer (64 KB) holds the next
 start until the process has read it, after its imports: pass bulk host data
 as a file.  CUDA tensors among ``args`` pickle small: they reach the ranks
-through CUDA IPC, without a copy, and stay owned by the caller.  A rank that
-raises makes :func:`run_ranks` raise.
+through CUDA IPC, without a copy, and stay owned by the caller; each rank
+drops its references once ``fn`` has returned, so that the caller's memory is
+freed when it drops its own (a block shared by IPC stays allocated in the
+caller until every rank has released it).  A rank that raises makes
+:func:`run_ranks` raise.
 """
 
 from __future__ import annotations
 
+import gc
 import tempfile
 from pathlib import Path
 
@@ -31,17 +35,19 @@ def run_ranks(fn, world_size: int, *args, backend: str = "gloo") -> list:
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, args=(fn, world_size, backend, tmp, args), nprocs=world_size, join=True)
+        mp.spawn(_rank_main, args=(fn, world_size, backend, tmp, list(args)), nprocs=world_size, join=True)
         if torch.cuda.is_initialized():
             torch.cuda.ipc_collect()  # release what the ranks held of this process's CUDA tensors
         return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world_size)]
 
 
-def _rank_main(rank: int, fn, world_size: int, backend: str, tmp: str, args: tuple) -> None:
+def _rank_main(rank: int, fn, world_size: int, backend: str, tmp: str, args: list) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=rank, world_size=world_size)
     try:
         out = fn(rank, *args)
+        args.clear()  # release the caller's CUDA tensors (IPC) before this process ends
+        gc.collect()
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -17,13 +17,24 @@ Parallelism styles expressed purely through rules:
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the running
 process group (:func:`make_compat_mesh`), made ambient by
-:func:`use_compat_mesh`.  The JAX package's ``compat_shard_map`` has no torch
-form: on a mesh each process holds its local shard of every tensor, and the
-explicit paths (:mod:`repro_torch.parallel.sp_decode`,
-:mod:`repro_torch.models.moe_ep`) call collectives on the mesh's sub-group of
-an axis (:meth:`AbstractMesh.group`).  Placement of whole tensors by the
-rules (DTensor, FSDP) is not done here: the specs say where each tensor
-would go.
+:func:`use_compat_mesh`.  The JAX package runs two kinds of distribution, and
+the port has both:
+
+  * GSPMD (whole arrays placed by the rules; the partitioner inserts the
+    collectives): :func:`place` turns a tree of tensors into DTensors on the
+    mesh by :func:`shard_params`' placements, :func:`shard` is
+    ``with_sharding_constraint`` (a differentiable ``redistribute`` of a
+    DTensor to the placements its logical axes give), and DTensor's
+    sharding propagation inserts the collectives in between.  The models
+    run on such tensors (:mod:`repro_torch.models.transformer`), their
+    kernels on each rank's local shards (``local_map`` in the kernels'
+    ``ops``), and :func:`gather` brings a placed tree back whole.
+  * ``compat_shard_map`` (the code writes its collectives out itself): each
+    process holds plain local shards, and the explicit paths
+    (:mod:`repro_torch.parallel.sp_decode`, :mod:`repro_torch.models.moe_ep`)
+    call collectives on the mesh's sub-group of an axis
+    (:meth:`AbstractMesh.group`).  :func:`shard` leaves plain tensors as
+    they are.
 """
 
 from __future__ import annotations
@@ -141,20 +152,24 @@ def active_abstract_mesh() -> AbstractMesh:
     return _MESH.get()
 
 
-def make_compat_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device_type: str | None = None):
+def make_compat_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the running
     process group (whose world size must be the product of ``shape``), rank r
     at the row-major position r.  ``device_type``: where the ranks' tensors
-    live, ``"cuda"`` when a card is present, else ``"cpu"`` (a gloo process
-    group reduces tensors of either)."""
+    live, the card unless ``"cpu"`` is asked for (a gloo process group
+    reduces tensors of either); raises on ``"cuda"`` without a card."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device for a "cuda" mesh; pass device_type="cpu" to run the ranks on the CPU')
     if device_type == "cuda":  # rank r on card r % cards: several ranks share a card when there are fewer
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        if dist.get_backend() == "gloo":  # DTensor's all-gather of CUDA tensors, on gloo's all_reduce
+            from repro_torch.parallel import gloo_cuda
+
+            gloo_cuda.install("cuda")
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
@@ -219,12 +234,181 @@ def _spec_for(
     return PartitionSpec(*out)
 
 
+def is_placed(x) -> bool:
+    """Is ``x`` a DTensor (a whole tensor placed on a mesh)?"""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def shard(x, *logical_axes: str | None):
-    """Annotate ``x`` with logical axes: returns ``x`` itself, on a mesh or off
-    one.  Off a mesh it is a no-op, as in the JAX package.  On a mesh the
-    port's tensors are already each rank's local shards (there is no global
-    array for a constraint to place), so it leaves them as they are too."""
-    return x
+    """Annotate ``x`` with logical axes (``with_sharding_constraint``).  A
+    DTensor is redistributed to the placements the axes give on the ambient
+    mesh (its own mesh when none is ambient): differentiable, its backward
+    redistributes the cotangent back.  A plain tensor is returned as it is, on
+    a mesh or off one: off a mesh the annotation is a no-op, as in the JAX
+    package, and the explicit paths' tensors are already each rank's local
+    shards."""
+    if not is_placed(x):
+        return x
+    mesh = active_abstract_mesh().device_mesh or x.device_mesh
+    want = logical_sharding(mesh, logical_axes, current_rules(), tuple(x.shape))
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def replicated_like(t: torch.Tensor, ref):
+    """``t``, a tensor the model code makes itself (positions, RoPE tables,
+    masks, a scan's fresh state), as ``ref`` holds its tensors: ``Replicate()``
+    on ``ref``'s mesh when ``ref`` is a DTensor (every rank makes the same
+    ``t``), else ``t`` itself."""
+    if not is_placed(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def place(tree, mesh, placements_tree):
+    """Each tensor leaf of ``tree`` as a DTensor on ``mesh`` with the
+    placements of the matching leaf of ``placements_tree`` (what
+    :func:`shard_params` gives; a DTensor leaf is redistributed to them).
+    Every rank holds the same whole tensor, so each cuts its own shard and
+    nothing is sent (``distribute_tensor(..., src_data_rank=None)``).
+    Non-tensor leaves are kept as they are."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = _as_abstract(mesh)._device_mesh()
+
+    def one(x, placements):
+        if is_placed(x):
+            return x.redistribute(mesh, placements)
+        if not isinstance(x, torch.Tensor):
+            return x
+        return distribute_tensor(x.detach(), mesh, placements, src_data_rank=None)
+
+    return _zip_map(one, tree, placements_tree)
+
+
+def gather(tree):
+    """:func:`place`'s inverse: each DTensor leaf as its whole tensor
+    (``full_tensor()``, a collective: every rank of the mesh calls it)."""
+    return _zip_map(lambda x, _: x.full_tensor() if is_placed(x) else x, tree, None)
+
+
+def local_call(fn, inputs, out_placements, in_grad_placements=None):
+    """``fn`` over each rank's local shards of the DTensors ``inputs`` (all on
+    one mesh), its outputs placed by ``out_placements`` (``local_map``): the
+    boundary where a kernel, which takes plain tensors, runs on placed ones.
+    ``in_grad_placements``: the placements of each input's gradient when it
+    is not the input's own (``Partial()`` on a mesh dimension where an input
+    is replicated but the work is split, so each rank's gradient is a part of
+    the sum).  An output placed ``Partial()`` (each rank's part of a sum)
+    takes its gradient whole (``Replicate()`` there): every rank's part
+    needs the whole cotangent of the sum."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = inputs[0].device_mesh
+    one = _is_placements(out_placements)
+    outs = local_map(fn, out_placements=list(out_placements) if one else out_placements,  # a tuple: one per output
+                     in_placements=tuple(tuple(x.placements) for x in inputs),
+                     in_grad_placements=in_grad_placements, device_mesh=mesh)(*inputs)
+    wrap = lambda y: _WholeGrad.apply(y) if any(p.is_partial() for p in y.placements) else y  # noqa: E731
+    return wrap(outs) if one else tuple(wrap(y) for y in outs)
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity on a DTensor whose backward makes the cotangent
+    ``Replicate()`` where the value is ``Partial()``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.want = tuple(_replicate_partial(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.want)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity whose backward makes the cotangent contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not is_placed(grad):
+            return grad.contiguous()
+        from torch.distributed.tensor import DTensor
+
+        local = grad.to_local()
+        if local.is_contiguous():
+            return grad
+        # a DTensor whose global strides are contiguous reads as contiguous: its shard is made so here
+        return DTensor.from_local(local.contiguous(), grad.device_mesh, grad.placements, run_check=False,
+                                  shape=grad.shape, stride=grad.stride())
+
+
+def contiguous_grad(x):
+    """``x``, whose cotangent's local shard is made contiguous on its way back:
+    a DTensor's ``view`` in the backward of a reshape needs one, and a
+    cotangent that comes back through a dtype cast keeps the strides of a
+    slice."""
+    return _ContiguousGrad.apply(x)
+
+
+def _replicate_partial(placements):
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if p.is_partial() else p for p in placements]
+
+
+def split_index(x, dim: int) -> tuple[int, int]:
+    """Where this rank's local shard of the DTensor ``x`` lies along ``dim``:
+    ``(index, count)`` of its block among the equal blocks ``dim`` is split
+    into (over every mesh dimension on which ``x`` is ``Shard(dim)``, the
+    first outermost)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    index, count = 0, 1
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            index = index * mesh.size(m) + mesh.get_local_rank(m)
+            count *= mesh.size(m)
+    return index, count
+
+
+def keep_shards(x, dims: tuple[int, ...]):
+    """The DTensor ``x`` redistributed so that it is split along ``dims`` only:
+    every other ``Shard`` and every ``Partial`` becomes ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(p if isinstance(p, Shard) and p.dim in dims else Replicate() for p in x.placements)
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def _zip_map(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over ``tree``'s dicts, lists and tuples
+    (``other``: a tree of the same nesting whose leaves are placements tuples,
+    or None)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, None if other is None else other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not (other is not None and _is_placements(other)):
+        subs = [None] * len(tree) if other is None else other
+        if len(subs) != len(tree):
+            raise ValueError(f"{len(tree)} entries against {len(subs)} placements")
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, subs))
+    return fn(tree, other)
+
+
+def _is_placements(x) -> bool:
+    from torch.distributed.tensor import Placement
+
+    return isinstance(x, tuple) and all(isinstance(p, Placement) for p in x)
 
 
 def placements(spec: PartitionSpec, mesh) -> tuple:

@@ -37,10 +37,9 @@ import argparse
 import contextlib
 import json
 import logging
-import os
 import sys
 
-from repro_torch import faults
+from repro_torch import configure_logging, faults
 from repro_torch import obs
 from repro_torch.suite.layers import parse_override
 from repro_torch.suite.runner import RetryPolicy, run_suite
@@ -49,24 +48,6 @@ from repro_torch.suite.store import DEFAULT_ROOT, RunStore
 from repro_torch.suite.trend import DEFAULT_HISTORY, compute_trends, load_bench_history, render_trends
 
 log = logging.getLogger("repro_torch.suite.cli")
-
-
-def configure_logging(level: int | str | None = None) -> None:
-    """Plain messages from the ``repro_torch`` loggers on stderr, at the
-    level of ``REPRO_LOG`` (default ``info``)."""
-    if level is None:
-        level = os.environ.get("REPRO_LOG", "info")
-    if isinstance(level, str):
-        level = getattr(logging, level.upper())
-    root = logging.getLogger("repro_torch")
-    for h in list(root.handlers):
-        if getattr(h, "_repro_configured", False):
-            root.removeHandler(h)
-    handler = logging.StreamHandler()
-    handler.setFormatter(logging.Formatter("%(message)s"))
-    handler._repro_configured = True
-    root.addHandler(handler)
-    root.setLevel(level)
 
 
 def _cmd_run(args: argparse.Namespace) -> int:

@@ -27,11 +27,17 @@ Beyond the paper:
     older one tried; with every one damaged, the run restarts from a fresh
     state with the pristine data state.
 
-The JAX trainer's ``relaunch_shardings`` (elastic restore onto another mesh)
-has no meaning on one card and is left out.  Two places hold two copies of
-the training state for a moment, as in the JAX package: a preemption builds
-the fresh state before the old one is dropped, and a restore reads the
-checkpoint while the live state it replaces is still held.
+On a mesh (placed training state, every rank of the process group running
+the trainer) each rank makes the same lifecycle decisions, since the trace
+and the data are deterministic, and the checkpoint manager saves and
+restores collectively.  ``relaunch_shardings`` (a tree of DTensor placements
+of the ``(params, opt_state)`` nesting) goes to every restore, as in the JAX
+trainer: the relaunch places the restored state with them on the ambient
+mesh, which may differ from the mesh that saved it (the elastic restore).
+Two places hold two copies of the training state for a moment, as in the JAX
+package: a preemption builds the fresh state before the old one is dropped,
+and a restore reads the checkpoint while the live state it replaces is still
+held.
 """
 
 from __future__ import annotations
@@ -92,6 +98,7 @@ class SpotTrainer:
         init_params: Callable[[], tuple],  # () -> (params, opt_state)
         data,  # TokenStream
         trace: PriceTrace,
+        relaunch_shardings=None,
         on_straggler: Callable | None = None,
     ):
         self.cfg = cfg
@@ -99,6 +106,7 @@ class SpotTrainer:
         self.init_params = init_params
         self.data = data
         self.trace = trace
+        self.relaunch_shardings = relaunch_shardings
         self.on_straggler = on_straggler
         self.mgr = CheckpointManager(
             cfg.ckpt_dir, keep=cfg.keep, codec_name=cfg.codec, async_io=cfg.async_io
@@ -117,6 +125,7 @@ class SpotTrainer:
         data,
         market: int = 0,
         bid_index: int = 0,
+        relaunch_shardings=None,
         on_straggler: Callable | None = None,
         **config_overrides,
     ) -> "SpotTrainer":
@@ -142,6 +151,7 @@ class SpotTrainer:
             init_params=init_params,
             data=data,
             trace=cellm.trace,
+            relaunch_shardings=relaunch_shardings,
             on_straggler=on_straggler,
         )
 
@@ -187,7 +197,9 @@ class SpotTrainer:
             restored = False
             for s in reversed(self.mgr.steps()):
                 try:
-                    (params, opt_state), extra = self.mgr.restore((params, opt_state), step=s)
+                    (params, opt_state), extra = self.mgr.restore(
+                        (params, opt_state), step=s, shardings=self.relaunch_shardings
+                    )
                 except CheckpointCorruptionError as e:
                     self.mgr.quarantine(s)
                     n_fallback += 1

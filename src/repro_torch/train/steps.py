@@ -1,5 +1,5 @@
-"""Step factories: the train step and greedy sampling (the port of
-:mod:`repro.train.steps`).
+"""Step factories: the train step, prefill, decode and greedy sampling (the
+port of :mod:`repro.train.steps`).
 
 :func:`make_train_step` returns ``train_step(params, opt_state, batch) ->
 (params, opt_state, metrics)``: the gradient of
@@ -9,6 +9,14 @@ update; the metrics add ``grad_norm`` and ``lr``.  Eager PyTorch: each step
 runs the model's ops and kernels as it goes.  Gradients reach every parameter
 through the kernels' autograd Functions (forward: the kernel; backward: the
 recomputed plain version).
+
+On placed parameters (DTensors on a mesh; a plain batch, the same on every
+rank, is placed by ``("batch", "seq")``) the step is the JAX package's step under a mesh: each
+gradient is redistributed to its parameter's placements (where the parameter
+is whole on a data axis, its gradient comes back as each rank's part of the
+sum: this is the data-parallel all-reduce), and AdamW runs on the ranks'
+shards; the new state keeps the placements, and the metrics are plain
+tensors, alike on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from repro_torch.checkpoint import tree as tree_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel import sharding as S
 
 
 @dataclasses.dataclass
@@ -62,10 +71,14 @@ def make_train_step(
     the kernels."""
 
     def loss_of(params, mb):
-        return T.loss_fn(cfg, params, mb, q_block=q_block, kv_block=kv_block, remat=remat, impl=impl,
-                         device=params["embed.tokens"].device)
+        table = params["embed.tokens"]
+        dev = (table.to_local() if S.is_placed(table) else table).device
+        return T.loss_fn(cfg, params, mb, q_block=q_block, kv_block=kv_block, remat=remat, impl=impl, device=dev)
 
     def train_step(params, opt_state, batch):
+        table = params["embed.tokens"]
+        if S.is_placed(table) and not S.is_placed(batch["tokens"]):  # the same whole batch on every rank
+            batch = place_batch(table.device_mesh, batch)
         leaves, treedef = tree_lib.flatten(params)
         grads = metrics = None
         mbs = _split_microbatches(batch, microbatches)
@@ -74,7 +87,8 @@ def make_train_step(
             loss, m = loss_of(treedef.unflatten(wrt), mb)
             g = torch.autograd.grad(loss, wrt, allow_unused=True)
             g = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(wrt, g)]  # JAX: zeros
-            m = {k: v.detach() for k, v in m.items()}
+            g = [as_placed_like(gx, x) for x, gx in zip(wrt, g)]
+            m = {k: _whole(v.detach()) for k, v in m.items()}
             if grads is None:
                 grads, metrics = list(g), m
             else:
@@ -92,6 +106,66 @@ def make_train_step(
         return params, opt_state, metrics
 
     return train_step
+
+
+def state_shardings(mesh, cfg: ModelConfig, params, opt_state) -> tuple:
+    """The DTensor placements of a training state ``(params, opt_state)`` on
+    ``mesh`` by the ambient rules: :func:`~repro_torch.parallel.shard_params`
+    over the model's ``param_axes`` and the optimizer's ``opt_state_axes``
+    (the JAX package's elastic example's ``sh``); ``params`` and
+    ``opt_state`` (meta tensors will do) give the shapes."""
+    from repro_torch.optim.adamw import opt_state_axes
+
+    axes = T.param_axes(cfg)
+    return (S.shard_params(mesh, axes, abstract_tree=params),
+            S.shard_params(mesh, opt_state_axes(axes), abstract_tree=opt_state))
+
+
+def place_batch(mesh, batch: dict) -> dict:
+    """A token batch (``tokens``, ``labels``: ``(B, S)``, the same whole batch on
+    every rank) placed on ``mesh`` by ``("batch", "seq")``."""
+    return {k: S.place(v, mesh, S.logical_sharding(mesh, ("batch", "seq"), shape=tuple(v.shape)))
+            for k, v in batch.items()}
+
+
+def as_placed_like(g, x):
+    """The gradient ``g`` of a placed parameter ``x`` redistributed to ``x``'s
+    placements (a ``Partial`` sum over the ranks of a data axis is
+    all-reduced, a split one reduce-scattered); ``g`` itself off a mesh."""
+    if not S.is_placed(x):
+        return g
+    g = g.redistribute(x.device_mesh, x.placements)
+    if tuple(g.placements) != tuple(x.placements):
+        raise AssertionError(f"a gradient placed {g.placements} for a parameter placed {x.placements}")
+    return g
+
+
+def _whole(v):
+    """A metric as a plain tensor: a placed one's whole value."""
+    return v.full_tensor() if S.is_placed(v) else v
+
+
+def make_prefill(cfg: ModelConfig, max_len: int, *, q_block: int = 1024, kv_block: int = 1024, impl=None):
+    """Returns ``prefill(params, batch) -> (last logits, cache)``
+    (:func:`repro_torch.models.transformer.prefill` with a cache of
+    ``max_len`` slots), on the device its parameters lie on."""
+
+    def prefill(params, batch):
+        return T.prefill(cfg, params, batch, max_len, q_block=q_block, kv_block=kv_block, impl=impl,
+                         device=params["embed.tokens"].device)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    """Returns ``decode_step(params, tokens, cache) -> (logits, cache)``
+    (:func:`repro_torch.models.transformer.decode_step`), on the device its
+    parameters lie on."""
+
+    def decode_step(params, tokens, cache):
+        return T.decode_step(cfg, params, tokens, cache, device=params["embed.tokens"].device)
+
+    return decode_step
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

@@ -488,3 +488,45 @@ def test_hold_flash_prefill_chunks_the_queries(smoke):
     late[:, -1] += 1.0  # the last query of the ragged chunk
     with pytest.raises(AssertionError, match="queries 512"):
         smoke.hold_flash_prefill(((q, k, v), {"causal": True}, late))
+
+
+def test_mesh_phase_cuts_tolerances_and_line(smoke):
+    from repro_torch.configs import get_config
+
+    cuts, tol = smoke.mesh_cuts(), smoke.mesh_tolerances()
+    assert set(cuts) == {"train", "scans", "elastic"} and set(tol) == {"loss_and_grad_norm", "restored_shards"}
+    assert tol["loss_and_grad_norm"] is smoke.TRAIN_LOSS_TOL
+    assert smoke.MESH_SHAPE == (2, 2) and smoke.MESH_AXES == ("data", "model")
+    # (a): phase 14's model and depth at half its sequence; a warm-up and a timed step
+    assert (cuts["train"]["model"], cuts["train"]["layers"], cuts["train"]["of_layers"]) == ("glm4-9b", 4, 40)
+    assert (smoke.MESH_BATCH, 2 * smoke.MESH_SEQ, smoke.MESH_STEPS) == (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ, 2)
+    # (b): published widths, cut depth, the kernels each rank launches once a layer of their kind
+    for arch, layers, launches in smoke.MESH_SCAN_MODELS:
+        full = get_config(arch)
+        assert layers < full.n_layers and cuts["scans"][arch]["layers"] == layers
+    assert dict((a, l) for a, _, l in smoke.MESH_SCAN_MODELS) == {
+        "falcon-mamba-7b": {"ssm_scan": 2}, "recurrentgemma-9b": {"rglru_scan": 2, "flash_attention": 1}}
+    # (c): the example's two launches at (a)'s widths and depth, int8, 2 ranks then 4, two steps each
+    run = smoke.elastic_run("/nowhere")
+    cfg = run.config()
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size, cfg.n_layers) == (
+        4096, 32, 2, 13696, 151552, 4)
+    assert (cuts["elastic"]["model"], cuts["elastic"]["first_mesh"]) == ("glm4-9b", [2])
+    assert (run.second_mesh, run.steps, run.codec) == ((2, 2), 2, "int8")
+    assert (run.batch, run.seq, run.moment_dtype) == (smoke.MESH_BATCH, smoke.MESH_SEQ, smoke.MESH_MOMENTS)
+    assert smoke.MESH_LINE_KEYS == ("card", "ranks", "mesh", "backend", "parent_gb_at_start", "train", "scans",
+                                    "elastic", "launches", "phase_s", "cuts", "tolerances")
+    assert smoke.held(1.0, 1.01, 0.02) and not smoke.held(1.0, 1.1, 0.02)
+
+
+def test_shard_checksums_see_every_bit(smoke):
+    from repro_torch.launch import elastic_restart as E
+
+    x = torch.randn((8, 6), generator=torch.Generator().manual_seed(0)).bfloat16()
+    assert E.slice_digest(x, (2, 3), (4, 3)) == E.bits_digest(x[2:6, 3:6].clone())
+    for i in range(x.numel()):  # one bit of any element changes the checksum
+        y = x.clone()
+        y.view(-1).view(torch.int16)[i] ^= 1
+        assert E.bits_digest(y) != E.bits_digest(x)
+    z = torch.zeros(4)
+    assert E.bits_digest(z) != E.bits_digest(-z)  # -0.0 is another word

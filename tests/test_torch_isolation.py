@@ -126,9 +126,11 @@ def test_every_module_is_found():
         "repro_torch.suite.trend",
         "repro_torch.optim.compress",
         "repro_torch.parallel",
+        "repro_torch.parallel.gloo_cuda",
         "repro_torch.parallel.ranks",
         "repro_torch.parallel.sharding",
         "repro_torch.parallel.sp_decode",
+        "repro_torch.launch.elastic_restart",
         "repro_torch.models.moe_ep",
         "repro_torch.launch.mesh",
     ):

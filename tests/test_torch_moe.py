@@ -26,6 +26,7 @@ import torch
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.models import moe as JM
 from repro.models import transformer as JT
+from repro_torch.data.threefry import prng_key
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
@@ -106,7 +107,7 @@ def test_moe_capacity_matches_jax():
 
 def test_apply_moe_is_deterministic_and_init_has_the_jax_shapes():
     cfg = get_smoke_config("arctic-480b")
-    b = ParamBuilder(torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
+    b = ParamBuilder(prng_key(0), "cpu", torch.bfloat16)
     M.init_moe(b, "moe", cfg)
     jb_shapes = {k: v.shape for k, v in moe_params(cfg, jax_get_smoke_config("arctic-480b"))[0].items()}
     assert {k: tuple(v.shape) for k, v in b.params.items()} == jb_shapes

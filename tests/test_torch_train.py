@@ -291,6 +291,25 @@ def test_bf16_moments_shapes_and_dtype():
     assert p2["w"].dtype == torch.bfloat16 and s2["nu"]["w"].dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_blocks_gives_the_whole_leafs_bits(moment_dtype, monkeypatch):
+    """A leaf longer than ``UPDATE_ELEMENTS`` goes in blocks (the last one
+    ragged); a shorter one in one block, its results returned as they are."""
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator().manual_seed(5)
+    params = {"a": torch.randn((6, 5), generator=gen), "b": torch.randn(7, generator=gen).bfloat16(),
+              "c": torch.randn((), generator=gen)}
+    grads = {k: (3 * torch.randn(v.shape, generator=gen)).to(v.dtype) for k, v in params.items()}
+    cfg = AdamWConfig(lr=0.01, moment_dtype=moment_dtype, weight_decay=0.05)
+    state = adamw_init(params, cfg)
+    whole = adamw_update(params, grads, state, cfg)[:2]
+    monkeypatch.setattr(adamw, "UPDATE_ELEMENTS", 7)  # a: 5 blocks; b: one whole block; c: one
+    blocks = adamw_update(params, grads, state, cfg)[:2]
+    for x, y in zip(tree_lib.leaves(blocks), tree_lib.leaves(whole)):
+        assert x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
 @pytest.mark.parametrize("which", ["cosine", "warmup_cosine"])
 def test_schedules_match_jax(which):
     if which == "cosine":
