@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models, train, run the distribution substrate as four ranks, and train placed on a mesh of four ranks.
+"""Smoke run of the PyTorch port on one GPU: build, check, run the §VII study, contended markets, the fleet, auto-scaled serving and the suite, serve all ten models, train, run the distribution substrate as four ranks, train placed on a mesh of four ranks, serve placed on four ranks and run the dry run.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc::
 
@@ -187,21 +187,48 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    recurrentgemma-9b (3 layers) at published widths, 2 x 512 tokens, the
    ``ssm_scan`` / ``rglru_scan`` / flash launches counted in each rank,
    against the single process; (c) ``repro_torch.launch.elastic_restart``'s
-   two launches at (a)'s widths and depth, int8 checkpoint, 1 step each: 2
+   two launches at (a)'s widths and depth, int8 checkpoint, 2 steps each: 2
    ranks on ``(2,)`` (rank 0 alone quantizes), then 4 on ``(2, 2)`` restoring
    with ``shardings=``; every rank's restored shard equal to the single
    process's restored leaf's slice (a 64-bit checksum of its bits), launch 2's
    losses against one process restoring the same checkpoint within
    ``TRAIN_LOSS_TOL``.  Prints one ``{"mesh": ...}`` line.
-18. Prints one ``{"kernels": [...]}`` line with the five kernels (the attention
+18. Placed serving, four gloo ranks on the one card (``PLACED_*``): prefill and
+   decode through ``repro_torch.models.transformer`` on parameters placed by
+   ``shard_params`` and a cache placed by ``cache_axes``, each case against the
+   same model's single-process run on the card (run first, its logits and greedy
+   tokens kept on the host; the ranks' decode fed its tokens): every step's
+   logits within ``LOGITS_TOL`` of one process, the ranks' own greedy tokens
+   compared and their agreement printed, the kernels' launches a prefill counted
+   in each rank and decode launching none, each kernel's first call of each shape
+   in every rank's prefill held against its plain version on the same local
+   shards (flash attention within ``ATTN_TOL``, the RG-LRU scan bit for bit, the
+   SSM scan within ``SCAN_TOL``).  (a) glm4-9b at its published widths
+   with 4 of 40 layers on 2 x 2: 2 x 2048 tokens into a 4096-slot cache, 8 decode
+   steps (flash attention 4 a prefill a rank), then the same with ``kv_seq`` on
+   ``model`` (the cache split along its slots, the SP merge placed); (b)
+   recurrentgemma-9b (3 layers; its 2048-slot window cache wraps in decode) and
+   falcon-mamba-7b (2 layers) likewise, ``rglru_scan`` / ``ssm_scan`` / flash
+   launches counted; (c) arctic-480b with 1 of 35 layers on 1 x 4 (32 experts a
+   rank, the parent's weights by CUDA IPC), 2 x 1024 and 4 steps, the placed
+   ``apply_moe`` and ``moe_impl="ep"``; (d) whisper-large-v3 (32 + 32 layers)
+   and internvl2-1b (24 layers) at full depth, 2 x 1024 and 8 steps, then one
+   placed ``loss_fn`` and its gradient at 2 x 512, the loss and the gradient's
+   norm within ``TRAIN_LOSS_TOL`` of one process; (e) ``python -m
+   repro_torch.launch.dryrun`` for ``PLACED_DRYRUN``'s two cells on the host
+   (started with the phase, beside the single-process runs), each record ``ok``.  Prints one
+   ``{"placed_serving": ...}`` line.
+19. Prints one ``{"phase_s": ...}`` line (each phase's wall seconds, by number), then
+   one ``{"kernels": [...]}`` line with the five kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
    five-scheme study of phase 4, the six-scheme study of phase 5 and the
    contended studies of phase 6; the model kernels' and the codec's: serving,
    training and the campaign, the SP decode's prefills in the ranks of phase
-   16, and the mesh phase's ranks).
-19. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   16, the mesh phase's ranks and the placed-serving phase's ranks; a model
+   kernel's ``max_abs_err`` the worst of its checks, phase 18's included).
+20. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2410,20 +2437,20 @@ def sp_merge_check(calls, k, v, ranks: int, device="cuda") -> dict:
             "broken_merges": {f: errs[f] for f in SP_FAULTS}}
 
 
-def hold_flash_prefill(call) -> float:
+def hold_flash_prefill(call, what="SP prefill flash attention") -> float:
     """One layer's prefill flash attention (a recorded call) against the plain
     ``naive_attention`` on the same q / k / v, ``SP_CHUNK`` queries at a time."""
     from repro_torch.kernels.flash_attention.ref import naive_attention
 
     (q, k, v), kw, out = call
     if kw.get("q_offset", 0):
-        raise AssertionError("the SP prefill's flash attention starts at position 0")
+        raise AssertionError(f"{what}: a prefill's flash attention starts at position 0")
     err = 0.0
     for i in range(0, q.shape[1], SP_CHUNK):
         want = naive_attention(q[:, i:i + SP_CHUNK], k, v, causal=kw.get("causal", True), window=kw.get("window", 0),
                                q_offset=i)
         err = max(err, check_close(out[:, i:i + SP_CHUNK], want, ATTN_TOL["bfloat16"],
-                                   f"SP prefill flash attention, queries {i}..{i + SP_CHUNK}"))
+                                   f"{what}, queries {i}..{i + SP_CHUNK}"))
     return err
 
 
@@ -2873,7 +2900,7 @@ def mesh_train_rank(rank) -> dict:
     from repro_torch.optim import adamw_init
     from repro_torch.parallel import gloo_cuda
     from repro_torch.parallel import sharding as S
-    from repro_torch.train.steps import make_train_step, place_batch
+    from repro_torch.train.steps import make_train_step
 
     mesh = S.make_compat_mesh(MESH_SHAPE, MESH_AXES, device_type="cuda")
     device = torch.device("cuda", torch.cuda.current_device())
@@ -2889,7 +2916,7 @@ def mesh_train_rank(rank) -> dict:
         step = make_train_step(cfg, mesh_opt(), remat=False, q_block=1024, kv_block=1024)
         torch.cuda.reset_peak_memory_stats()
         for batch in mesh_batches(cfg, device, MESH_STEPS):
-            batch = place_batch(mesh, batch)
+            batch = T.place_batch(mesh, batch)
             torch.cuda.synchronize()
             reset_launches()
             gloo_cuda.STATS.calls = gloo_cuda.STATS.bytes = 0
@@ -2924,7 +2951,7 @@ def mesh_scan_rank(rank, arch, layers) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim import global_norm
     from repro_torch.parallel import sharding as S
-    from repro_torch.train.steps import as_placed_like, place_batch
+    from repro_torch.train.steps import as_placed_like
 
     mesh = S.make_compat_mesh(MESH_SHAPE, MESH_AXES, device_type="cuda")
     device = torch.device("cuda", torch.cuda.current_device())
@@ -2933,7 +2960,7 @@ def mesh_scan_rank(rank, arch, layers) -> dict:
     with S.use_compat_mesh(mesh):
         params = T.init_params(cfg, seed=0, device=device)
         params = S.place(params, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=params))
-        batch = place_batch(mesh, tokens)
+        batch = T.place_batch(mesh, tokens)
         leaves, treedef = tree_lib.flatten(params)
         wrt = [x.detach().requires_grad_(True) for x in leaves]
         torch.cuda.synchronize()
@@ -3176,6 +3203,400 @@ def mesh_phase(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The placed-serving phase: prefill and decode on placed parameters and caches,
+# four ranks of the one card (gloo), and the dry run on the host
+# ---------------------------------------------------------------------------
+
+#: Placed serving (DTensors by the logical-axes rules; the cache placed by cache_axes).
+#: Each case: (name, arch, layers served (None: all), prompt tokens, cache slots, decode
+#: steps, rules over the defaults, mesh, config changes, kernel launches one prefill makes
+#: in each rank).  (a) glm4-9b at its published widths with 4 of 40 layers (phase 14's
+#: cut), then with kv_seq on model (the SP merge placed); (b) the two scan models at
+#: phase 17's depths (recurrentgemma-9b's 2048-slot window cache wraps at the first decode
+#: step); (c) arctic-480b with 1 of its 35 layers on a 1 x 4 mesh (32 experts a rank, no
+#: FSDP gather of the 26.8 GB of experts: the data axis is 1), placed apply_moe and
+#: moe_impl="ep"; (d) whisper-large-v3 (32 + 32 layers) and internvl2-1b (24) at full
+#: depth.
+PLACED_SHAPE, PLACED_AXES, PLACED_MOE_SHAPE = (2, 2), ("data", "model"), (1, 4)
+PLACED_BATCH = 2
+PLACED_CASES = (
+    ("glm4-9b", "glm4-9b", 4, 2048, 4096, 8, {}, PLACED_SHAPE, {}, {"flash_attention": 4}),
+    ("glm4-9b_sp_kv", "glm4-9b", 4, 2048, 4096, 8, {"kv_seq": "model"}, PLACED_SHAPE, {}, {"flash_attention": 4}),
+    ("recurrentgemma-9b", "recurrentgemma-9b", 3, 2048, 4096, 8, {}, PLACED_SHAPE, {},
+     {"rglru_scan": 2, "flash_attention": 1}),
+    ("falcon-mamba-7b", "falcon-mamba-7b", 2, 2048, 4096, 8, {}, PLACED_SHAPE, {}, {"ssm_scan": 2}),
+    ("arctic-480b", "arctic-480b", 1, 1024, 2048, 4, {}, PLACED_MOE_SHAPE, {}, {"flash_attention": 1}),
+    ("arctic-480b_ep", "arctic-480b", 1, 1024, 2048, 4, {}, PLACED_MOE_SHAPE, {"moe_impl": "ep"},
+     {"flash_attention": 1}),
+    ("whisper-large-v3", "whisper-large-v3", None, 1024, 2048, 8, {}, PLACED_SHAPE, {}, {"flash_attention": 64}),
+    ("internvl2-1b", "internvl2-1b", None, 1024, 2048, 8, {}, PLACED_SHAPE, {}, {"flash_attention": 24}),
+)
+#: (d)'s loss_fn and its gradient: (arch, sequence), batch PLACED_BATCH.
+PLACED_LOSS = (("whisper-large-v3", 512), ("internvl2-1b", 512))
+#: (e)'s dry-run cells: (arch, shape, mesh, variant).
+PLACED_DRYRUN = (("glm4-9b", "decode_32k", "single", "baseline"), ("arctic-480b", "prefill_32k", "multi", "ep_moe"))
+#: The keys of the phase's ``{"placed_serving": ...}`` line.
+PLACED_LINE_KEYS = ("card", "ranks", "backend", "cases", "loss", "dryrun", "launches", "kernel_vs_plain",
+                    "rank_peak_memory_gb", "parent_gb", "phase_s", "cuts", "tolerances")
+
+
+def placed_cuts() -> dict:
+    from repro_torch.configs import get_config
+
+    return {name: {"model": arch, "layers": layers or get_config(arch).n_layers, "of_layers": get_config(arch).n_layers,
+                   "batch": PLACED_BATCH, "prompt": prompt, "cache_slots": slots, "decode_steps": steps,
+                   "mesh": list(mesh)}
+            for name, arch, layers, prompt, slots, steps, _, mesh, _, _ in PLACED_CASES}
+
+
+def placed_tolerances() -> dict:
+    return {"logits": f"max |diff| <= {LOGITS_TOL} * (1 + max |single-process logits|)",
+            "loss_and_grad_norm": TRAIN_LOSS_TOL}
+
+
+def placed_cfg(arch, layers, changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, **changes)
+
+
+def logits_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|) of two logits tensors (float32 on the host)."""
+    return float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+
+
+def placed_params(cases, with_loss, device) -> dict:
+    """The parameters of ``cases`` (and of (d)'s loss), drawn once on the card, by
+    ``(arch, layers)``: the single process runs on them, and the ranks take them by CUDA
+    IPC (each rank's shards views of them: ``place(..., copy=False)``)."""
+    from repro_torch.models import transformer as T
+
+    keys = dict.fromkeys((arch, layers) for _, arch, layers, *_ in cases)
+    keys.update(dict.fromkeys((arch, None) for arch, _ in PLACED_LOSS if with_loss))
+    return {(arch, layers): T.init_params(placed_cfg(arch, layers, {}), seed=0, device=device)
+            for arch, layers in keys}
+
+
+def placed_single(case, params, device) -> dict:
+    """One case in one process on the card: the prefill logits, the decode steps' logits
+    fed the greedy tokens, the tokens (all on the host) and the times."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import greedy_sample
+
+    name, arch, layers, prompt, slots, steps, _, _, changes, _ = case
+    cfg = placed_cfg(arch, layers, changes)
+    batch = model_batch(cfg, device, batch=PLACED_BATCH, prompt=prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, batch, slots)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = {"logits": [logits.float().cpu()], "tokens": [greedy_sample(logits).cpu()]}
+    for _ in range(steps):
+        logits, cache = T.decode_step(cfg, params, out["tokens"][-1].to(device), cache)
+        out["logits"].append(logits.float().cpu())
+        out["tokens"].append(greedy_sample(logits).cpu())
+    torch.cuda.synchronize()
+    out.update(prefill_s=t1 - t0, decode_ms=1e3 * (time.perf_counter() - t1) / steps)
+    del cache, logits, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def placed_loss_single(arch, seq, params, device) -> dict:
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import global_norm
+
+    cfg = placed_cfg(arch, None, {})
+    batch = model_batch(cfg, device, seed=5, batch=PLACED_BATCH, prompt=seq)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    leaves, treedef = tree_lib.flatten(params)
+    wrt = [x.detach().requires_grad_(True) for x in leaves]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch)
+    grads = torch.autograd.grad(loss, wrt)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach()), "grad_norm": float(global_norm(grads)), "s": time.perf_counter() - t0}
+    del wrt, grads, loss, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+class FirstOfEach(Recorder):
+    """A :class:`Recorder` that keeps the first call of each shape and keyword set."""
+
+    def __enter__(self):
+        self.seen = set()
+        return super().__enter__()
+
+    def _call(self, *args, **kwargs):
+        out = self.orig(*args, **kwargs)
+        key = (tuple(tuple(a.shape) for a in args), tuple(sorted(kwargs.items())))
+        if key not in self.seen:
+            self.seen.add(key)
+            self.calls.append((args, kwargs, out))
+        return out
+
+
+def hold_local_calls(name, calls) -> dict:
+    """A kernel's calls on one rank's local shards (recorded by :class:`FirstOfEach` on
+    its wrapper) against its plain version on the same inputs, on the card, as phase 11
+    holds it: flash attention within ``ATTN_TOL`` (``SP_CHUNK`` queries at a time), the
+    RG-LRU scan bit for bit, the SSM scan within ``SCAN_TOL``."""
+    plain = model_kernel_modules()[name][2]
+    err = 0.0
+    for args, kw, out in calls:
+        what = f"placed prefill {name} {[tuple(a.shape) for a in args]}"
+        if name == "flash_attention":
+            err = max(err, hold_flash_prefill((args, kw, out), what))
+        elif name == "rglru_scan":
+            err = max(err, *(check_equal(g, w, what) for g, w in zip(out, plain(*args), strict=True)))
+        else:
+            err = max(err, *(check_close(g, w, SCAN_TOL, what) for g, w in zip(out, plain(*args), strict=True)))
+    return {"max_abs_err": err, "shapes": [[list(a.shape) for a in args] for args, _, _ in calls]}
+
+
+def placed_rank(rank, tokens, params, names, with_loss) -> dict:
+    """The cases ``names`` of the phase in one rank: the placed prefill and the decode
+    steps fed the single process's tokens (``tokens[name]``), each kernel's first call
+    of each shape in the prefill held against its plain version, then, ``with_loss``,
+    (d)'s loss and gradient, on the parent's parameters (``params``, by CUDA IPC: each
+    rank's shards are views of them, ``place(..., copy=False)``)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.steps import as_placed_like, greedy_sample
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    kernels = model_kernel_modules()
+    cases = [c for c in PLACED_CASES if c[0] in names]
+    meshes = {shape: S.make_compat_mesh(shape, PLACED_AXES, device_type="cuda") for shape in {c[7] for c in cases}}
+    torch.cuda.reset_peak_memory_stats()
+    out = {"cases": {}, "loss": {}}
+    for name, arch, layers, prompt, slots, steps, rules, shape, changes, _ in cases:
+        cfg = placed_cfg(arch, layers, changes)
+        mesh = meshes[shape]
+        whole = params[(arch, layers)]
+        with S.use_compat_mesh(mesh), S.axis_rules({**S.DEFAULT_RULES, **rules}):
+            placed = S.place(whole, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=whole), copy=False)
+            batch = model_batch(cfg, device, batch=PLACED_BATCH, prompt=prompt)
+            torch.cuda.synchronize()
+            reset_launches()
+            with contextlib.ExitStack() as stack:
+                recorded = {k: stack.enter_context(FirstOfEach(mod, k)) for k, (mod, _, _) in kernels.items()}
+                t0 = time.perf_counter()
+                logits, cache = T.prefill(cfg, placed, batch, slots)  # the main path
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            launches = read_launches()
+            got = {"logits": [logits.full_tensor().float().cpu()], "launches": launches, "prefill_s": t1 - t0}
+            own = [greedy_sample(logits).cpu()]
+            for tok in tokens[name][:steps]:
+                logits, cache = T.decode_step(cfg, placed, tok.to(device), cache)  # the main path
+                got["logits"].append(logits.full_tensor().float().cpu())
+                own.append(greedy_sample(logits).cpu())
+            torch.cuda.synchronize()
+            if read_launches() != launches:  # decode is plain, as in the JAX package
+                raise AssertionError(f"placed {name}: decode launched kernels: {read_launches()} after {launches}")
+            got["decode_ms"] = 1e3 * (time.perf_counter() - t1) / steps
+            got["tokens"] = own
+            got["kernel_vs_plain"] = {k: hold_local_calls(k, r.calls) for k, r in recorded.items() if r.calls}
+            del recorded
+            first = cache["layers"][0]
+            first = first.get("self", first)
+            got["cache_placements"] = {k: str(tuple(v.placements)) for k, v in first.items() if S.is_placed(v)}
+            out["cases"][name] = got
+            del placed, cache, logits, batch
+            torch.cuda.empty_cache()
+    for arch, seq in PLACED_LOSS if with_loss else ():
+        cfg = placed_cfg(arch, None, {})
+        mesh = meshes[PLACED_SHAPE]
+        whole = params[(arch, None)]
+        with S.use_compat_mesh(mesh):
+            placed = S.place(whole, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=whole), copy=False)
+            batch = model_batch(cfg, device, seed=5, batch=PLACED_BATCH, prompt=seq)
+            batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+            leaves, treedef = tree_lib.flatten(placed)
+            wrt = [x.detach().requires_grad_(True) for x in leaves]
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), T.place_batch(mesh, batch))  # the main path
+            grads = [as_placed_like(g, x) for x, g in zip(wrt, torch.autograd.grad(loss, wrt))]
+            torch.cuda.synchronize()
+            out["loss"][arch] = {"loss": float(loss.detach().to_local()), "grad_norm": float(global_norm(grads)),
+                                 "s": time.perf_counter() - t0, "launches": read_launches()}
+            del placed, wrt, grads, loss, leaves, batch
+            torch.cuda.empty_cache()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def placed_dryrun_start(tmp) -> list:
+    """(e): ``python -m repro_torch.launch.dryrun`` for PLACED_DRYRUN's cells, started on
+    this machine's host (no card) while the single process runs on the card."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape", cell[1], "--mesh", cell[2],
+         "--variant", cell[3], "--out", str(tmp)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for cell in PLACED_DRYRUN]
+
+
+def placed_dryrun_finish(started, tmp) -> dict:
+    """Waits for the dry runs; every record must end ``ok``."""
+    out = {}
+    for (arch, shape, mesh, variant), proc in started:
+        log, _ = proc.communicate(timeout=600)
+        name = f"{arch}__{shape}__{'pod2x16x16' if mesh == 'multi' else 'pod16x16'}"
+        path = Path(tmp) / (name + ("" if variant == "baseline" else f"__{variant}") + ".json")
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing", "error": log[-2000:]}
+        if proc.returncode or rec["status"] != "ok":
+            raise AssertionError(f"dry run {name} {variant}: exit {proc.returncode}, {rec['status']}: "
+                                 f"{rec.get('error')}")
+        out[f"{name}__{variant}"] = {"run_s": rec["lower_s"] + rec["compile_s"], "chips": rec["chips"],
+                                     "argument_gb": rec["memory"]["argument_bytes"] / 1e9,
+                                     "temp_gb": rec["memory"]["temp_bytes"] / 1e9,
+                                     "flops_per_device": rec["flops_per_device"],
+                                     "collectives": {k: v["count"] for k, v in rec["collectives"].items()}}
+        print(f"dry run {arch} {shape} {mesh} {variant}: ok, {out[f'{name}__{variant}']}", flush=True)
+    return out
+
+
+def placed_serving_phase(device, card) -> dict:
+    """Phase 18: prefill and decode on placed parameters and caches, four ranks of the one
+    card; then the dry run on the host.  (The MoE's parameters reach the ranks by CUDA
+    IPC, which this machine's kernel refuses for memory of the expandable-segments
+    allocator: the parent's allocator keeps its default.)"""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.parallel.ranks import run_ranks
+
+    _build.load_library()
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # (e) on the host while the single process runs on the card.  Then in two groups, the
+    # cases on 2 x 2 with (d)'s loss and the MoE's on 1 x 4: one process first, on the
+    # parameters the ranks then take by CUDA IPC (the parent holds one group's at a time),
+    # its logits and tokens kept on the host; then one spawn of four ranks
+    dryrun_dir = tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_dryrun_")
+    dryruns = placed_dryrun_start(dryrun_dir.name)
+    singles, loss_singles, tokens, ranks, parent_gb, spawn_s = {}, {}, {}, None, [], []
+    for group, with_loss in (([c for c in PLACED_CASES if c[7] == PLACED_SHAPE], True),
+                             ([c for c in PLACED_CASES if c[7] != PLACED_SHAPE], False)):
+        params = placed_params(group, with_loss, device)
+        for case in group:  # moe_impl="ep" off a mesh is apply_moe: one single-process run serves both
+            singles[case[0]] = (singles.get(case[0].removesuffix("_ep"))
+                                or placed_single(case, params[case[1:3]], device))
+            tokens[case[0]] = singles[case[0]]["tokens"]
+        for arch, seq in PLACED_LOSS if with_loss else ():
+            loss_singles[arch] = placed_loss_single(arch, seq, params[(arch, None)], device)
+        if dryruns:
+            with dryrun_dir:
+                dryrun = placed_dryrun_finish(dryruns, dryrun_dir.name)
+            dryruns = None
+        parent_gb.append(torch.cuda.memory_allocated() / 1e9)
+        print(f"placed: the parent holds {parent_gb[-1]:.2f} GB of the card: the parameters of "
+              f"{[c[0] for c in group]}", flush=True)
+        t0 = time.perf_counter()
+        got = run_ranks(placed_rank, math.prod(PLACED_SHAPE), tokens, params, [c[0] for c in group], with_loss)
+        spawn_s.append(time.perf_counter() - t0)
+        del params
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        if ranks is None:
+            ranks = got
+            continue
+        for r, out in zip(ranks, got):
+            r["cases"].update(out["cases"])
+            r["peak_memory_gb"] = max(r["peak_memory_gb"], out["peak_memory_gb"])
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    launches, cases, vs_plain = {}, {}, {}
+    for name, arch, layers, prompt, slots, steps, rules, shape, changes, want in PLACED_CASES:
+        one = singles[name]
+        errs, held_here = [], {}
+        for r, out in enumerate(ranks):
+            got = out["cases"][name]
+            if {k: v for k, v in got["launches"].items() if v} != want:
+                raise AssertionError(f"placed {name} rank {r}: prefill launches {got['launches']}, expected {want}")
+            if set(got["kernel_vs_plain"]) != set(want):
+                raise AssertionError(f"placed {name} rank {r}: held {sorted(got['kernel_vs_plain'])} against their "
+                                     f"plain versions, launched {sorted(want)}")
+            for k, h in got["kernel_vs_plain"].items():
+                held_here[k] = max(held_here.get(k, 0.0), h["max_abs_err"])
+                agg = vs_plain.setdefault(k, {"max_abs_err": 0.0, "calls_held": 0, "shapes": []})
+                agg["max_abs_err"] = max(agg["max_abs_err"], h["max_abs_err"])
+                agg["calls_held"] += len(h["shapes"])
+                agg["shapes"] += [sh for sh in h["shapes"] if sh not in agg["shapes"]]
+            for i, (g, w) in enumerate(zip(got["logits"], one["logits"], strict=True)):
+                err, scale = logits_err(g, w)
+                if err > LOGITS_TOL * (1 + scale):
+                    raise AssertionError(f"placed {name} rank {r} step {i}: logits {err} from one process "
+                                         f"(scale {scale})")
+                errs.append(err)
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        agree = [bool(torch.equal(a, b)) for a, b in zip(ranks[0]["cases"][name]["tokens"], one["tokens"])]
+        got = [o["cases"][name] for o in ranks]
+        cases[name] = {"logits_max_abs_err": max(errs), "greedy_tokens_agree": sum(agree), "of_tokens": len(agree),
+                       "prefill_s": max(g["prefill_s"] for g in got), "decode_ms": max(g["decode_ms"] for g in got),
+                       "single_process": {"prefill_s": one["prefill_s"], "decode_ms": one["decode_ms"]},
+                       "launches_per_rank": want, "kernel_vs_plain_max_abs_err": held_here,
+                       "cache_placements": got[0]["cache_placements"]}
+        c = cases[name]
+        print(f"placed {name} ({shape} mesh, {PLACED_BATCH} x {prompt} into {slots} slots, {steps} steps): logits "
+              f"within {c['logits_max_abs_err']:.4g} of one process, greedy tokens agree {c['greedy_tokens_agree']}"
+              f"/{c['of_tokens']}; prefill {c['prefill_s']:.2f} s, decode {c['decode_ms']:.0f} ms a step against "
+              f"{one['prefill_s']:.3f} s / {one['decode_ms']:.1f} ms in one process; launches {want} a rank a "
+              f"prefill, on the ranks' shards within {held_here} of the plain versions; cache "
+              f"{c['cache_placements']}", flush=True)
+    loss = {}
+    for arch, seq in PLACED_LOSS:
+        one, family = loss_singles[arch], placed_cfg(arch, None, {}).family
+        for r, out in enumerate(ranks):
+            got = out["loss"][arch]
+            if not (held(got["loss"], one["loss"], TRAIN_LOSS_TOL[family])
+                    and held(got["grad_norm"], one["grad_norm"], TRAIN_LOSS_TOL[family])):
+                raise AssertionError(f"placed loss {arch} rank {r}: {got['loss']} / {got['grad_norm']} vs one "
+                                     f"process {one['loss']} / {one['grad_norm']}")
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        got = ranks[0]["loss"][arch]
+        loss[arch] = {"loss": got["loss"], "grad_norm": got["grad_norm"], "single_process": one,
+                      "s": max(o["loss"][arch]["s"] for o in ranks), "batch": PLACED_BATCH, "seq": seq}
+        print(f"placed loss {arch} ({PLACED_BATCH} x {seq}): loss {got['loss']:.4f} / grad norm "
+              f"{got['grad_norm']:.4f} vs one process {one['loss']:.4f} / {one['grad_norm']:.4f}", flush=True)
+    out = {"card": card, "ranks": math.prod(PLACED_SHAPE), "backend": "gloo", "cases": cases, "loss": loss,
+           "dryrun": dryrun, "launches": launches, "kernel_vs_plain": vs_plain,
+           "rank_peak_memory_gb": max(o["peak_memory_gb"] for o in ranks),
+           "parent_gb": parent_gb, "phase_s": {"total": time.perf_counter() - t_phase, "spawns": spawn_s},
+           "cuts": placed_cuts(), "tolerances": placed_tolerances()}
+    assert tuple(out) == PLACED_LINE_KEYS
+    print(json.dumps({"placed_serving": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3198,6 +3619,14 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    phase_walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Records and prints the wall seconds of the phase that just ended."""
+        now = time.perf_counter()
+        phase_walls[phase] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"phase {phase}: {phase_walls[phase]:.1f} s", flush=True)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3210,6 +3639,7 @@ def main() -> int:
         elif "registers" in line or "spill" in line or "wgmma" in line or "setmaxnreg" in line:
             print("  ptxas:   ", line.replace("ptxas info    :", "").strip())
     print_sass(_build.library_path())
+    lap("2")
 
     # -- 3. kernel vs plain version on small studies, and the golden digest ----
     for name, sc in small_studies().items():
@@ -3225,6 +3655,7 @@ def main() -> int:
     if not golden.completed.any() or (golden.cost < 0).any():
         raise AssertionError("golden study: no job completed, or a negative cost")
     print("golden study: digest equals the JAX package's results", flush=True)
+    lap("3")
 
     # -- 4. the full-width study --------------------------------------------
     sc = full_study()
@@ -3277,71 +3708,93 @@ def main() -> int:
     print(json.dumps({"engine": {"cells": res.n_cells, "setup_s": setup_s, **walls}}), flush=True)
     open_kills, open_completed = int(res.n_kills.sum()), int(res.completed.sum())
     del sc, args, res, res_plain, out, out_plain, job
+    lap("4")
 
     # -- 5. ACC beside the other five schemes -----------------------------------
     six_launches = acc_phase(device)
     sweep_entry["launches_by_path"] = {"five_schemes": sweep_entry["launches"], "six_schemes": six_launches}
     sweep_entry["launches"] += six_launches
+    lap("5")
 
     # -- 6. contended markets: capacity studies through the sweep kernel --------
     capacity_launches = capacity_phase(device, open_kills, open_completed)
     sweep_entry["launches_by_path"]["capacity"] = capacity_launches
     sweep_entry["launches"] += sum(capacity_launches.values())
+    lap("6")
 
     # -- 7. the fleet: placement and attempt waves on the card ----------------
     fleet_phase(device)
+    lap("7")
 
     # -- 8. serving under spot auto-scaling: the batch engine's waves on the card
     autoscale_phase(device)
+    lap("8")
 
     # -- 9. the suite control plane: a serving suite through the run store -----
     suite_phase(device)
+    lap("9")
 
     # -- 10. the model kernels vs their plain versions at small shapes --------
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     small_errs = small_kernel_checks(device)
+    lap("10")
 
     # -- 11. serving at full width -------------------------------------------
     init_stream_check(device)
     found = serve_models(device)
+    lap("11")
 
     # -- 12. the codec kernel vs its plain version at small sizes ---------------
     small_codec_checks(device)
+    lap("12")
 
     # -- 13. training through the kernels at small sizes -----------------------
     small_train = small_training_checks(device)
+    lap("13")
 
     # -- 14. training at full width --------------------------------------------
     training, codec_measured = train_full_width(device)
+    lap("14")
 
     # -- 15. the spot campaign at full width ----------------------------------
     campaign = spot_campaign(device)
     print(json.dumps({"training": {"card": card, **training, "campaign": campaign, "small": small_train}}), flush=True)
+    lap("15")
 
     # -- 16. four ranks on the card: compression, SP decode, EP MoE ------------
     parallel = parallel_phase(device, card)
+    lap("16")
 
     # -- 17. four ranks on the card: placed training, the elastic restore -----
     mesh = mesh_phase(device, card)
+    lap("17")
 
-    # -- 18. the kernels line -------------------------------------------------
+    # -- 18. four ranks on the card: placed serving; the dry run on the host ---
+    placed = placed_serving_phase(device, card)
+    lap("18")
+
+    # -- 19. the kernels line -------------------------------------------------
     rows = model_kernel_rows(found, small_errs)
     for row in rows:
         extra = campaign["launches"].get(row["name"], 0) + (
             TRAIN_STEPS * training["flash_attention_launches_per_step"] if row["name"] == "flash_attention" else 0)
         sp = parallel["sp_decode"]["flash_launches"] if row["name"] == "flash_attention" else 0
         on_mesh = mesh["launches"].get(row["name"], 0)
+        on_placed = placed["launches"].get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], placed["kernel_vs_plain"][row["name"]]["max_abs_err"])
         row["launches_by_path"] = {"serving": row["launches"], "training": extra}
         if sp:
             row["launches_by_path"]["sp_decode_prefill"] = sp
         row["launches_by_path"]["mesh"] = on_mesh
-        row["launches"] += extra + sp + on_mesh
+        row["launches_by_path"]["placed_serving"] = on_placed
+        row["launches"] += extra + sp + on_mesh + on_placed
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"] + mesh["launches"]["ckpt_codec"])
     codec["launches_by_path"] = {"campaign": campaign["launches"]["ckpt_codec"], "mesh": mesh["launches"]["ckpt_codec"]}
+    print(json.dumps({"phase_s": phase_walls}), flush=True)
     print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
 
-    # -- 19. the result line ------------------------------------------------
+    # -- 20. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

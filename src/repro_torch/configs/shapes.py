@@ -9,6 +9,8 @@ rule, with ``torch.empty(shape, dtype=..., device="meta")`` in place of
   decode_32k   kv 32768,    global_batch 128   -> decode step (1 new token)
   long_500k    kv 524288,   global_batch 1     -> decode step; sub-quadratic
                                                   archs only (SSM / hybrid)
+
+:func:`cache_specs` gives a decode shape's cache the same way.
 """
 
 from __future__ import annotations
@@ -65,3 +67,15 @@ def batch_specs(cfg: ModelConfig, shape_name: str) -> dict:
         out["vision_embeds"] = _meta((b, cfg.vision_tokens, cfg.d_model), torch.bfloat16)
         out["vision_mask"] = _meta((b, s), torch.bool)
     return out
+
+
+def cache_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Meta tensors standing in for a decode shape's whole cache (bf16, as the
+    JAX package's dry run makes it: ``global_batch`` requests of ``seq_len``
+    slots; no rank's sequence slice)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import AbstractMesh, use_compat_mesh
+
+    spec = SHAPES[shape_name]
+    with use_compat_mesh(AbstractMesh()):
+        return T.init_cache(cfg, spec.global_batch, spec.seq_len, torch.bfloat16, device="meta")

@@ -7,31 +7,35 @@
     it launches or raises;
   * on CPU tensors, the plain PyTorch version (:func:`ref.block_attention`);
   * with ``impl="plain"``, the plain version on whatever device the tensors
-    are on (the yardstick the kernel is held to on the card).
+    are on (the yardstick the kernel is held to on the card);
+  * on meta tensors (a dry run), shapes and the plain version's FLOPs
+    (:mod:`repro_torch.kernels.meta`), whatever ``impl`` asks for.
 
 On DTensors (placed by the logical-axes rules) it runs on each rank's local
 shards (``local_map``): its rows of the batch and its query heads, each head
 against its own kv head.  ``decode_attention`` (one token against the cache)
-has no kernel in the JAX package either and is always the plain version.
+has no kernel in the JAX package either and is always the plain version
+(:func:`on_local_heads` runs it, and the cross-attention's
+``naive_attention``, on placed shards too).
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels import check_impl
+from repro_torch.kernels import check_impl, meta
 from repro_torch.kernels.flash_attention import kernel, ref
 from repro_torch.parallel import sharding as S
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_block=1024, kv_block=1024, q_offset=0, impl=None):
     check_impl(impl)
-    fn = ref.block_attention if impl == "plain" else kernel.flash_attention
+    fn = meta.flash_attention if meta.on_meta(q) else ref.block_attention if impl == "plain" else kernel.flash_attention
     kw = dict(causal=causal, window=window, q_block=q_block, kv_block=kv_block, q_offset=q_offset)
     if S.is_placed(q):
-        return _on_local_heads(fn, q, k, v, kw)
+        return on_local_heads(fn, q, k, v, **kw)
     return fn(q, k, v, **kw)
 
 
-def _on_local_heads(fn, q, k, v, kw):
+def on_local_heads(fn, q, k, v, **kw):
     """``fn`` on each rank's local q ``(B, S, H, D)`` and k / v ``(B, S, KV,
     D)`` shards, split over the batch and the heads only.  Where the kv heads
     are whole (GQA with fewer kv heads than ranks on the axis) but the q heads

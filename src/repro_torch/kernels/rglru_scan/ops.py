@@ -1,19 +1,20 @@
 """RG-LRU scan op of the recurrent blocks: CUDA tensors -> the kernel, CPU
 tensors or ``impl="plain"`` -> the plain PyTorch version; DTensors -> the
 same on each rank's local rows and ``rnn`` columns (``local_map``: the
-recurrence runs along the sequence, which stays whole).  The decode step is
-plain."""
+recurrence runs along the sequence, which stays whole); meta tensors ->
+shapes and the plain version's FLOPs (:mod:`repro_torch.kernels.meta`).  The
+decode step is plain."""
 
 from __future__ import annotations
 
-from repro_torch.kernels import check_impl
+from repro_torch.kernels import check_impl, meta
 from repro_torch.kernels.rglru_scan import kernel, ref
 from repro_torch.parallel import sharding as S
 
 
 def rglru_scan(log_a, gated_x, *, impl=None):
     check_impl(impl)
-    fn = ref.rglru_scan if impl == "plain" else kernel.rglru_scan
+    fn = meta.rglru_scan_shapes if meta.on_meta(log_a) else ref.rglru_scan if impl == "plain" else kernel.rglru_scan
     if not S.is_placed(log_a):
         return fn(log_a, gated_x)
     from torch.distributed.tensor import Shard

@@ -2,18 +2,19 @@
 or ``impl="plain"`` -> the plain PyTorch version; DTensors -> the same on
 each rank's local rows and channels (``local_map``; C, which has no channel
 dimension, is whole on every rank, and its gradient is each rank's part of
-the sum over channels).  The decode step is plain."""
+the sum over channels); meta tensors -> shapes and the plain version's
+FLOPs (:mod:`repro_torch.kernels.meta`).  The decode step is plain."""
 
 from __future__ import annotations
 
-from repro_torch.kernels import check_impl
+from repro_torch.kernels import check_impl, meta
 from repro_torch.kernels.ssm_scan import kernel, ref
 from repro_torch.parallel import sharding as S
 
 
 def ssm_scan(dtA, dBx, C, *, impl=None):
     check_impl(impl)
-    fn = ref.ssm_scan if impl == "plain" else kernel.ssm_scan
+    fn = meta.ssm_scan_shapes if meta.on_meta(dtA) else ref.ssm_scan if impl == "plain" else kernel.ssm_scan
     if not S.is_placed(dtA):
         return fn(dtA, dBx, C)
     from torch.distributed.tensor import Partial, Replicate, Shard

@@ -44,7 +44,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel.ranks import run_ranks
-from repro_torch.train.steps import make_train_step, place_batch, state_shardings
+from repro_torch.train.steps import make_train_step, state_shardings
 
 #: Axis names of a mesh of one, two or three dimensions.
 MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
@@ -98,7 +98,7 @@ def _train(run: ElasticRun, mesh, params, opt_state, data, steps: int) -> tuple:
     step = make_train_step(run.config(), run.opt_config(), remat=False, q_block=run.block, kv_block=run.block)
     losses, norms, times = [], [], []
     for _ in range(steps):
-        batch = place_batch(mesh, next(data))
+        batch = T.place_batch(mesh, next(data))
         _sync(mesh)
         t0 = time.perf_counter()
         params, opt_state, m = step(params, opt_state, batch)

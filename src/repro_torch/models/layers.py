@@ -24,6 +24,7 @@ from repro_torch.models.params import ParamBuilder
 from repro_torch.parallel import sp_decode
 from repro_torch.parallel.sharding import (
     contiguous_grad, current_rules, is_placed, keep_shards, local_call, replicated_like, shard, split_index,
+    update_slice,
 )
 
 # ---------------------------------------------------------------------------
@@ -145,6 +146,8 @@ def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, win
     makes it so) and the step runs the distributed flash-decoding of
     :mod:`repro_torch.parallel.sp_decode`.
     """
+    if is_placed(cache["k"]):
+        return _placed_attention_decode(cfg, params, name, x, cache, window)
     pos = cache["len"]
     s_c = cache.get("seq_len", cache["k"].shape[1])
     circular = bool(window) and s_c <= window
@@ -168,6 +171,54 @@ def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, win
     o = attn_ops.decode_attention(q, cache["k"], cache["v"], cur, window=0 if circular else window)
     out = merge_heads(o, params[f"{name}.wo"])
     return out, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+
+
+def _placed_attention_decode(cfg: ModelConfig, params, name: str, x, cache, window):
+    """:func:`apply_attention_decode` on a cache placed by
+    :func:`attention_cache_axes` (the JAX package's GSPMD decode).  The new
+    token's key / value are written into each rank's shard of the cache in
+    place (:func:`~repro_torch.parallel.sharding.update_slice`), and the
+    decode attention runs on each rank's rows and heads
+    (:func:`~repro_torch.kernels.flash_attention.ops.on_local_heads`).  When
+    the rules put ``kv_seq`` on ``model`` and the cache is not circular, the
+    cache is split along its slots over ``model`` and each rank runs
+    :mod:`repro_torch.parallel.sp_decode`'s merge on its slice, as the JAX
+    package runs its ``shard_map`` inside GSPMD."""
+    pos = cache["len"]
+    s_c = cache["k"].shape[1]
+    circular = bool(window) and s_c <= window
+    q, k_new, v_new = _qkv(cfg, params, name, x, torch.tensor([pos], device=_device(x)))
+    if not circular and current_rules().get("kv_seq") == "model" and sp_decode.sp_available(s_c):
+        o = _sp_decode_placed(q, k_new, v_new, cache, pos)
+    else:
+        write_at = pos % s_c if circular else pos
+        update_slice(cache["k"], k_new, write_at)
+        update_slice(cache["v"], v_new, write_at)
+        cur = min(pos + 1, s_c) if circular else pos + 1
+        k, v = (keep_shards(cache[n], (0, 2)) for n in ("k", "v"))  # a cache split along its slots is gathered
+        o = attn_ops.on_local_heads(attn_ops.decode_attention, q, k, v, cur_len=cur, window=0 if circular else window)
+    out = shard(merge_heads(o, params[f"{name}.wo"]), "batch", "seq", "embed")
+    return out, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+
+
+def _sp_decode_placed(q, k_new, v_new, cache, pos: int):
+    """Sequence-parallel decode on a cache placed ``("batch", "kv_seq" ->
+    "model", ...)``: q and the new key / value whole over ``model`` (their rows
+    split as the cache's), and :func:`repro_torch.parallel.sp_decode.
+    sp_decode_attention_update` on each rank's rows and slice of slots (its
+    append writes the owning rank's shard of the cache in place)."""
+    from torch.distributed.tensor import Shard
+
+    mesh, pl = cache["k"].device_mesh, tuple(cache["k"].placements)
+    if pl[mesh.mesh_dim_names.index("model")] != Shard(1):
+        raise ValueError(f"a cache placed {pl} under rules that put kv_seq on model (place it by cache_axes)")
+    rows = tuple(keep_shards(cache["k"], (0,)).placements)
+    q, k_new, v_new = (t if tuple(t.placements) == rows else t.redistribute(mesh, rows) for t in (q, k_new, v_new))
+
+    def local(ql, kn, vn, kc, vc):
+        return sp_decode.sp_decode_attention_update(ql, kn, vn, kc, vc, pos)[0]
+
+    return local_call(local, (q, k_new, v_new, cache["k"], cache["v"]), rows)
 
 
 def sp_cache_slice(s_c: int, window: int = 0) -> tuple[int, int] | None:
@@ -202,6 +253,11 @@ def fill_attention_cache(cache: dict, k, v) -> None:
     S)``) into a cache that is not circular: its slots ``[0, S)``, or the
     positions that fall in this rank's sequence slice."""
     s = k.shape[1]
+    if is_placed(cache["k"]):  # each rank writes the positions in its shard (a cache split along its slots too)
+        update_slice(cache["k"], k, 0)
+        update_slice(cache["v"], v, 0)
+        cache["len"] = s
+        return
     lo, n = 0, s
     if "seq_len" in cache:
         if s > cache["seq_len"]:

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
+from repro_torch.parallel.sharding import is_placed, keep_shards, local_call, shard
 
 
 def silu(x):
@@ -76,7 +77,10 @@ def route(cfg: ModelConfig, params, name: str, x):
 def apply_moe(cfg: ModelConfig, params, name: str, x):
     """x ``(B, S, d)`` -> ``(out, aux)`` with aux ``{"load_balance_loss",
     "drop_frac", "top_e"}`` (float32 scalars; ``top_e (B, S, k)`` the chosen
-    experts)."""
+    experts).  On a placed x (:func:`_apply_moe_placed`) the same values,
+    placed."""
+    if is_placed(x):
+        return _apply_moe_placed(cfg, params, name, x)
     probs, top_w, top_e = route(cfg, params, name, x)
     y, keep = run_experts(cfg, params, name, x, top_w, top_e, 0, cfg.n_experts)
     lb_loss = load_balance_loss(cfg, probs, top_e)
@@ -94,13 +98,22 @@ def run_experts(cfg: ModelConfig, params, name: str, x, top_w, top_e, first: int
     assignment to another expert goes to an overflow bucket ``n``, which keeps
     nothing; capacity positions count only these experts' assignments, so a
     kept assignment is the one the whole layer keeps."""
-    bsz, s, d = x.shape
-    k = cfg.top_k
+    slot, keep = dispatch_slots(cfg, top_e, first, n)
+    buf = dispatch(cfg, x, slot, keep, n)
+    out_buf = expert_ffn(cfg, params, name, buf)
+    return combine(out_buf, slot, keep, top_w, top_e), keep
+
+
+def dispatch_slots(cfg: ModelConfig, top_e, first: int, n: int):
+    """Each assignment's row ``(e * B + b) * C + pos`` in the expert-major
+    buffer of experts ``first .. first + n - 1`` and whether it is kept:
+    ``(slot, keep)``, both ``(B, S * k)``.  Row-local: positions count within
+    one batch row (a stable sort of the expert ids and the experts' exclusive
+    offsets)."""
+    bsz, s, k = top_e.shape
     c = moe_capacity(cfg, s)
     tk = s * k
-    dev = x.device
-
-    # ---- position-in-expert via a stable sort (row-local) -------------------
+    dev = top_e.device
     eid = top_e.reshape(bsz, tk) - first
     owned = (eid >= 0) & (eid < n)
     eid = torch.where(owned, eid, n)
@@ -111,42 +124,100 @@ def run_experts(cfg: ModelConfig, params, name: str, x, top_w, top_e, first: int
     pos_sorted = torch.arange(tk, device=dev)[None, :] - torch.gather(offsets, 1, sorted_eid)
     pos = torch.empty_like(pos_sorted).scatter_(1, sort_idx, pos_sorted)  # back in assignment order
     keep = owned & (pos < c)
-
-    # ---- dispatch: row (e * B + b) * C + pos of an expert-major buffer --------
     brow = torch.arange(bsz, device=dev)[:, None]
     slot = (torch.clamp_max(eid, n - 1) * bsz + brow) * c + torch.clamp_max(pos, c - 1)
-    spare = n * bsz * c
-    buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=dev)
-    src = x.repeat_interleave(k, dim=1).reshape(-1, d)  # token t * k + j is token t
-    buf[torch.where(keep, slot, spare).reshape(-1)] = src
-    buf = buf[:spare].view(n, bsz * c, d)
+    return slot, keep
 
-    # ---- expert FFN (batched over the experts) ------------------------------
+
+def dispatch(cfg: ModelConfig, x, slot, keep, n: int):
+    """The kept tokens of x ``(B, S, d)`` written into their rows of the
+    expert-major buffer ``(n, B * C, d)`` (each kept slot is written once; the
+    dropped ones go to a spare row past the buffer, which is cut off)."""
+    bsz, s, d = x.shape
+    spare = n * bsz * moe_capacity(cfg, s)
+    buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=x.device)
+    src = x.repeat_interleave(cfg.top_k, dim=1).reshape(-1, d)  # token t * k + j is token t
+    buf[torch.where(keep, slot, spare).reshape(-1)] = src
+    return buf[:spare].view(n, -1, d)
+
+
+def expert_ffn(cfg: ModelConfig, params, name: str, buf):
+    """The expert FFNs on the buffer ``(E, rows, d)``, batched over the experts."""
     up = torch.bmm(buf, params[f"{name}.wi_up"])
     if cfg.gated_mlp:
         h = silu(torch.bmm(buf, params[f"{name}.wi_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    out_buf = torch.bmm(h, params[f"{name}.wo"]).view(-1, d)
+    return torch.bmm(h, params[f"{name}.wo"])
 
-    # ---- combine: gather, weight, add in ascending expert order ---------------
-    back = out_buf[slot.reshape(-1)].view(bsz, s, k, d) * keep.view(bsz, s, k, 1).to(x.dtype)
-    back = back * top_w[..., None].to(x.dtype)
+
+def combine(out_buf, slot, keep, top_w, top_e):
+    """Each token's k weighted rows of ``out_buf`` ``(n, B * C, d)``, added in
+    ascending expert order in the activations' dtype: y ``(B, S, d)``."""
+    bsz, s, k = top_e.shape
+    d = out_buf.shape[-1]
+    back = out_buf.reshape(-1, d)[slot.reshape(-1)].view(bsz, s, k, d) * keep.view(bsz, s, k, 1).to(out_buf.dtype)
+    back = back * top_w[..., None].to(out_buf.dtype)
     order = torch.argsort(top_e, dim=-1)
     back = torch.gather(back, 2, order[..., None].expand(-1, -1, -1, d))
     y = back[:, :, 0]
     for j in range(1, k):
         y = y + back[:, :, j]
-    return y, keep
+    return y
+
+
+def _apply_moe_placed(cfg: ModelConfig, params, name: str, x):
+    """:func:`apply_moe` on x ``(B, S, d)`` placed by ``("batch", "seq",
+    "embed")`` and the layer's weights placed by the rules (gathered over
+    ``fsdp``).  What is row-local runs on each rank's rows (``local_map``):
+    the routing, the slots and the dispatch into the rank's rows of the
+    expert-major buffer ``(E, B * C, d)`` (split over the data axes as x's
+    rows are).  The expert products run on the buffer placed as the expert
+    weights are (``experts`` on ``model``: each rank its experts' slice of its
+    rows, no communication), their outputs are gathered over the experts, and
+    the combine runs on each rank's rows again.  The aux values are the whole
+    batch's."""
+    from torch.distributed.tensor import Partial, Shard
+
+    rows = tuple(keep_shards(x, (0,)).placements)
+    x = x if tuple(x.placements) == rows else x.redistribute(x.device_mesh, rows)
+    router = params[f"{name}.router"]
+    mesh = x.device_mesh
+    # the router is whole on every rank; each rank's rows give their part of its gradient
+    router_grad = tuple(Partial() if p == Shard(0) else r for p, r in zip(rows, router.placements))
+    probs, top_w, top_e = local_call(
+        lambda xl, rl: route(cfg, {f"{name}.router": rl}, name, xl), (x, router), (rows, rows, rows),
+        (rows, router_grad))
+    n = cfg.n_experts
+    slot, keep = local_call(lambda e: dispatch_slots(cfg, e, 0, n), (top_e,), (rows, rows))
+    buf_rows = tuple(Shard(1) if p == Shard(0) else p for p in rows)
+    buf = local_call(lambda xl, sl, kl: dispatch(cfg, xl, sl, kl, n), (x, slot, keep), buf_rows)
+    # the buffer split over the experts where the weights are, its rows as x's
+    w_pl = params[f"{name}.wi_up"].placements
+    on_experts = tuple(Shard(0) if w == Shard(0) else b for b, w in zip(buf_rows, w_pl))
+    out_buf = expert_ffn(cfg, params, name, buf.redistribute(mesh, on_experts))
+    out_buf = out_buf.redistribute(mesh, buf_rows)  # every expert's rows of this rank's tokens
+    y = local_call(combine, (out_buf, slot, keep, top_w, top_e), rows)
+    lb_loss = load_balance_loss(cfg, probs, top_e)
+    drop_frac = 1.0 - keep.float().mean()
+    return shard(y, "batch", "seq", "embed"), {"load_balance_loss": lb_loss, "drop_frac": drop_frac, "top_e": top_e}
 
 
 def load_balance_loss(cfg: ModelConfig, probs, top_e):
     """The GShard load-balance loss: ``E * mean_b sum_e (share of the row's
-    assignments to e) * (mean router probability of e)``."""
+    assignments to e) * (mean router probability of e)`` (placed: each row's
+    counts on its rank, the mean over the whole batch)."""
     bsz, s, k = top_e.shape
-    eid = top_e.reshape(bsz, s * k)
-    counts = torch.zeros((bsz, cfg.n_experts), dtype=torch.int64, device=eid.device)
-    counts.scatter_add_(1, eid, torch.ones_like(eid))
+    counts = (_expert_counts(cfg, top_e) if not is_placed(top_e) else
+              local_call(lambda e: _expert_counts(cfg, e), (top_e,), tuple(top_e.placements)))
     frac_tokens = counts.float() / (s * k)
     frac_probs = probs.mean(dim=1)
     return cfg.n_experts * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
+
+
+def _expert_counts(cfg: ModelConfig, top_e):
+    """Each row's assignments to each expert ``(B, E)``."""
+    bsz, s, k = top_e.shape
+    eid = top_e.reshape(bsz, s * k)
+    counts = torch.zeros((bsz, cfg.n_experts), dtype=torch.int64, device=eid.device)
+    return counts.scatter_add_(1, eid, torch.ones_like(eid))

@@ -31,6 +31,8 @@ of the whole batch's mean loss.
 
 from __future__ import annotations
 
+import math
+
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import apply_moe, load_balance_loss, route, run_experts
 from repro_torch.parallel import sharding
@@ -67,28 +69,71 @@ def apply_moe_ep(cfg: ModelConfig, params, name: str, x):
     experts whole, as ``init_params`` or ``from_jax`` make them; each rank
     runs its rows (:func:`local_experts`).  Off a mesh with a model axis, or
     when that axis does not divide the expert count, it is ``apply_moe``, as
-    in the JAX package."""
+    in the JAX package.  On a placed x (the JAX package's ``shard_map`` inside
+    GSPMD) it runs in :func:`_apply_moe_ep_placed`."""
     mesh = _mesh_for_ep()
     tp = 0 if mesh is None else mesh.sizes["model"]
     if mesh is None or cfg.n_experts % tp:
         return apply_moe(cfg, params, name, x)
-    e_loc = cfg.n_experts // tp
+    if sharding.is_placed(x):
+        return _apply_moe_ep_placed(cfg, params, name, x, mesh)
     rank = mesh.local_rank("model")
     params = local_experts(params, name, rank, tp)
-    bsz, s, _ = x.shape
+    y, lb, drop = _ep_local(cfg, params, name, x, mesh, rank)
+    # aux: replicated along model; the mean over the data axes (ranks that hold
+    # the same rows give the same values, so this is the JAX package's mean over
+    # the axes the batch is split on)
+    data = _data_axes(mesh)
+    if data:
+        lb, drop = (sharding.pmean_replicas(t, mesh, data) for t in (lb, drop))
+    return y, {"load_balance_loss": lb, "drop_frac": drop}
 
+
+def _data_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.sizes)
+
+
+def _ep_local(cfg: ModelConfig, params, name: str, x, mesh, rank: int):
+    """One rank's part: the routing of its rows, its ``E / tp`` experts (the
+    expert weights in ``params``) and the sum over ``model``.  Returns ``(y,
+    load-balance loss, dropped fraction)`` of its rows."""
+    e_loc = params[f"{name}.wi_up"].shape[0]
+    bsz, s, _ = x.shape
     probs, top_w, top_e = route(cfg, params, name, x)  # the same on every model rank
     shared_x, shared_w = (sharding.pvary(t, mesh, "model") for t in (x, top_w))
     y, keep = run_experts(cfg, params, name, shared_x, shared_w, top_e, rank * e_loc, e_loc)
     y = sharding.psum(y, mesh, "model")
-
-    # aux: replicated along model; the mean over the data axes (ranks that hold
-    # the same rows give the same values, so this is the JAX package's mean over
-    # the axes the batch is split on)
     lb = load_balance_loss(cfg, probs, top_e)
     kept_n = sharding.psum(keep.float().sum(), mesh, "model")
-    drop = 1.0 - kept_n / (bsz * s * cfg.top_k)
-    data = tuple(a for a in ("pod", "data") if a in mesh.sizes)
-    if data:
-        lb, drop = (sharding.pmean_replicas(t, mesh, data) for t in (lb, drop))
-    return y, {"load_balance_loss": lb, "drop_frac": drop}
+    return y, lb, 1.0 - kept_n / (bsz * s * cfg.top_k)
+
+
+def _apply_moe_ep_placed(cfg: ModelConfig, params, name: str, x, mesh):
+    """The explicit EP call on each rank's local shards (``local_map``): its
+    rows of x, the router whole and its experts' rows of the expert weights
+    (placed ``experts`` on ``model``).  y is placed as x; the aux values are
+    the whole batch's, each rank's rows' value over the data ranks summed
+    (``Partial``), and the gradients of the router and of the expert weights
+    are each rank's rows' part of the sum over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = tuple(sharding.keep_shards(x, (0,)).placements)
+    x = x if tuple(x.placements) == rows else x.redistribute(x.device_mesh, rows)
+    names = [f"{name}.router"] + [f"{name}.{w}" for w in EXPERT_WEIGHTS if f"{name}.{w}" in params]
+    dm = x.device_mesh
+    model = dm.mesh_dim_names.index("model")
+    want = [tuple(Replicate() for _ in rows)] + [tuple(Shard(0) if m == model else Replicate()
+                                                       for m in range(dm.ndim))] * (len(names) - 1)
+    weights = [params[k] if tuple(params[k].placements) == w else params[k].redistribute(dm, w)
+               for k, w in zip(names, want)]
+    n_data = math.prod(dm.size(m) for m, p in enumerate(rows) if p == Shard(0))
+    aux_pl = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    grad_pl = [tuple(Partial() if p == Shard(0) else w for p, w in zip(rows, wp)) for wp in want]
+
+    def local(xl, *ws):
+        y, lb, drop = _ep_local(cfg, dict(zip(names, ws)), name, xl, mesh, mesh.local_rank("model"))
+        return y, lb / n_data, drop / n_data
+
+    y, lb, drop = sharding.local_call(local, (x, *weights), (rows, aux_pl, aux_pl), (rows, *grad_pl))
+    whole = tuple(Replicate() for _ in rows)
+    return y, {"load_balance_loss": lb.redistribute(dm, whole), "drop_frac": drop.redistribute(dm, whole)}

@@ -34,15 +34,17 @@ rank, in one of two ways:
     DTensors placed by the logical-axes rules
     (:func:`repro_torch.parallel.sharding.place` with
     :func:`~repro_torch.parallel.sharding.shard_params`' placements; tokens
-    and labels by ``("batch", "seq")``).  :func:`forward` and
-    :func:`loss_fn` run on them for the dense, hybrid and ssm families: each
-    layer first gathers its parameters over the ``fsdp`` axes (ZeRO-3: one
-    redistribution, whose backward is the reduce-scatter of their
-    gradients), the layers' ``shard`` annotations place the activations,
-    DTensor inserts the collectives, and the kernels run on each rank's
-    local shards.  The loss is the mean over the global batch.  MoE,
-    enc-dec and VLM models on placed tensors raise ``NotImplementedError``,
-    as do prefill and decode.
+    and labels by ``("batch", "seq")``, the rest by :data:`BATCH_AXES`).
+    :func:`forward`, :func:`loss_fn`, :func:`prefill` and :func:`decode_step`
+    run on them for every family: each layer first gathers its parameters
+    over the ``fsdp`` axes (ZeRO-3: one redistribution, whose backward is the
+    reduce-scatter of their gradients), the layers' ``shard`` annotations
+    place the activations, DTensor inserts the collectives, and the kernels
+    run on each rank's local shards; what is row-local (a MoE layer's
+    dispatch, a VLM's splice) runs on each rank's rows (``local_map``).  The
+    loss is the mean over the global batch.  :func:`prefill` returns a cache
+    placed by :func:`cache_axes` (``init_cache(..., mesh=)`` makes an empty
+    one), and :func:`decode_step` writes each rank's shard of it in place.
   * Explicit (``shard_map``): plain tensors, each rank's local shard: its
     rows of the batch, the whole parameters (a MoE layer with
     ``moe_impl="ep"`` runs its rank's experts:
@@ -61,6 +63,7 @@ JAX package's ``jax.checkpoint`` per layer does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -69,6 +72,7 @@ from torch.utils import checkpoint as activation_checkpoint
 from repro_torch.data import threefry
 from repro_torch.engine.base import resolve_device
 from repro_torch.kernels import check_impl
+from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -80,8 +84,10 @@ from repro_torch.models.params import ParamBuilder, model_dtype
 from repro_torch.parallel import sharding as SH
 
 FAMILIES = ("dense", "vlm", "moe", "encdec", "hybrid", "ssm")
-#: The families whose forward and loss run on placed (DTensor) parameters.
-PLACED_FAMILIES = ("dense", "hybrid", "ssm")
+#: The logical axes a batch entry is placed by on a mesh (a decode step's
+#: tokens ``(B, 1)`` as ``tokens``: ``"seq"`` is on no mesh axis).
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), "vision_mask": ("batch", "seq"),
+              "vision_embeds": ("batch", None, "embed"), "frames": ("batch", None, "embed")}
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -101,6 +107,29 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 
 def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window if (cfg.family == "hybrid" and kind == "attn") else 0
+
+
+def place_batch(mesh, batch: dict) -> dict:
+    """A batch (each entry the same whole tensor on every rank) placed on
+    ``mesh`` by :data:`BATCH_AXES` (a placed entry is kept as it is)."""
+    out = {}
+    for k, v in batch.items():
+        if SH.is_placed(v):
+            out[k] = v
+            continue
+        v = torch.as_tensor(v)
+        axes = BATCH_AXES.get(k, ("batch",) + (None,) * (v.dim() - 1))
+        out[k] = SH.place(v, mesh, SH.logical_sharding(mesh, axes, shape=tuple(v.shape)))
+    return out
+
+
+def _mesh_of(params: dict):
+    """The context of an entry point: the placed parameters' mesh made ambient
+    when no mesh is (a no-op off a mesh)."""
+    table = params["embed.tokens"]
+    if SH.is_placed(table) and SH.active_abstract_mesh().empty:
+        return SH.use_compat_mesh(table.device_mesh)
+    return contextlib.nullcontext()
 
 
 def _device(params: dict, device) -> torch.device:
@@ -264,10 +293,14 @@ def _feed_forward(cfg: ModelConfig, kind: str, p: dict, x):
 
 def _cross_attention(p: dict, name: str, x, k, v):
     """Dense cross-attention of x over the encoder's keys / values (short:
-    whisper's 1500 frames), the plain ``naive_attention`` on every path."""
+    whisper's 1500 frames), the plain ``naive_attention`` on every path (on
+    placed tensors, on each rank's rows and heads)."""
     q = L.project_heads(x, p[f"{name}.wq"])
-    o = attn_ref.naive_attention(q, k, v, causal=False)
-    return L.merge_heads(o, p[f"{name}.wo"])
+    if SH.is_placed(q):
+        o = attn_ops.on_local_heads(attn_ref.naive_attention, q, k, v, causal=False)
+    else:
+        o = attn_ref.naive_attention(q, k, v, causal=False)
+    return SH.shard(L.merge_heads(o, p[f"{name}.wo"]), "batch", "seq", "embed")
 
 
 def _layer_output(cfg: ModelConfig, kind: str, p: dict, x, memory, *, q_block, kv_block, impl):
@@ -281,12 +314,21 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict, dev):
     a row taking the i-th embedding (the frontend is stubbed, as there)."""
     x = L.embed_tokens(cfg, params, _on(batch["tokens"], dev))
     if cfg.family == "vlm" and "vision_embeds" in batch:
-        ve = torch.as_tensor(batch["vision_embeds"], device=dev).to(x.dtype)
-        mask = torch.as_tensor(batch["vision_mask"], device=dev).bool()
-        idx = torch.clamp(torch.cumsum(mask.int(), dim=1) - 1, 0, ve.shape[1] - 1)
-        spliced = torch.gather(ve, 1, idx[..., None].expand(-1, -1, ve.shape[2]))
-        x = torch.where(mask[..., None], spliced, x)
+        ve, mask = _on(batch["vision_embeds"], dev), _on(batch["vision_mask"], dev)
+        if not SH.is_placed(x):
+            return _splice(x, ve, mask)
+        # the i-th set position of a row takes the row's i-th embedding: row-local, on each rank's rows
+        rows = tuple(SH.keep_shards(x, (0,)).placements)
+        x, ve, mask = (t if tuple(t.placements) == rows else t.redistribute(t.device_mesh, rows) for t in (x, ve, mask))
+        x = SH.local_call(_splice, (x, ve, mask), rows)
     return x
+
+
+def _splice(x, ve, mask):
+    ve, mask = ve.to(x.dtype), mask.bool()
+    idx = torch.clamp(torch.cumsum(mask.int(), dim=1) - 1, 0, ve.shape[1] - 1)
+    spliced = torch.gather(ve, 1, idx[..., None].expand(-1, -1, ve.shape[2]))
+    return torch.where(mask[..., None], spliced, x)
 
 
 def _on(x, dev):
@@ -294,23 +336,11 @@ def _on(x, dev):
     return x if SH.is_placed(x) else torch.as_tensor(x, device=dev)
 
 
-def _check_placed(cfg: ModelConfig, params: dict, what: str) -> bool:
-    """Are the parameters placed (DTensors)?  Raises for what does not run
-    placed yet: another family than :data:`PLACED_FAMILIES`, and ``what`` when
-    it is not a forward."""
-    if not SH.is_placed(params["embed.tokens"]):
-        return False
-    if cfg.family not in PLACED_FAMILIES or what != "forward":
-        thing = f"a {cfg.family} model" if cfg.family not in PLACED_FAMILIES else what
-        raise NotImplementedError(f"{thing} on placed (DTensor) parameters is not ported yet (ROADMAP.md queue A)")
-    return True
-
-
 def _encode(cfg: ModelConfig, params: dict, frames, dev, *, q_block, kv_block, impl):
     """The encoder over ``frames (B, T, d)``: the learned position table of the
     decoder's embedding added (as the JAX package does), bidirectional
     self-attention layers, ``encoder_norm``."""
-    x = torch.as_tensor(frames, device=dev).to(params["embed.tokens"].dtype)
+    x = _on(frames, dev).to(params["embed.tokens"].dtype)
     if cfg.learned_pos:
         x = x + params["embed.positions"][: x.shape[1]][None]
     for p in params["encoder"]:
@@ -324,15 +354,20 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, *, q_block: int = 1024
     mean ``load_balance_loss`` and ``drop_frac`` (float32 zeros without)."""
     check_impl(impl)
     dev = _device(params, device)
-    placed = _check_placed(cfg, params, "forward")
-    if placed and not SH.is_placed(batch["tokens"]):
+    if SH.is_placed(params["embed.tokens"]) and not SH.is_placed(batch["tokens"]):
         raise ValueError("placed parameters take a placed batch (tokens by ('batch', 'seq'))")
+    with _mesh_of(params):
+        return _forward_layers(cfg, params, batch, dev, q_block=q_block, kv_block=kv_block, remat=remat, impl=impl)
+
+
+def _forward_layers(cfg: ModelConfig, params: dict, batch: dict, dev, *, q_block, kv_block, remat, impl):
     kw = dict(q_block=q_block, kv_block=kv_block, impl=impl)
     x = _embed_inputs(cfg, params, batch, dev)
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
     kinds = layer_kinds(cfg)
     n_moe = max(1, kinds.count("moe"))
-    aux = {name: torch.zeros((), dtype=torch.float32, device=dev) for name in ("load_balance_loss", "drop_frac")}
+    aux = {name: SH.replicated_like(torch.zeros((), dtype=torch.float32, device=dev), x)
+           for name in ("load_balance_loss", "drop_frac")}
     for kind, p in zip(kinds, params["layers"]):
         fn = functools.partial(_layer_output, cfg, kind, **kw)
         if remat:
@@ -363,7 +398,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **fw_kwargs):
     ``fw_kwargs`` go to :func:`forward`."""
     logits, aux = _forward(cfg, params, batch, **fw_kwargs)
     if SH.is_placed(logits):
-        return _placed_loss(logits, batch["labels"], aux)
+        return _placed_loss(cfg, logits, batch["labels"], aux)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     valid = labels >= 0
     labels_c = torch.clamp_min(labels, 0).long()
@@ -377,20 +412,27 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **fw_kwargs):
     return loss, {"loss": loss, "nll": nll.sum() / n_valid, **aux}
 
 
-def _placed_loss(logits, labels, aux):
+def _placed_loss(cfg: ModelConfig, logits, labels, aux):
     """:func:`loss_fn`'s loss on placed logits ``(B, S, V_pad)`` and labels:
-    the mean over the global batch's valid labels, a ``Replicate()`` scalar
-    (so its gradient starts alike on every rank)."""
+    the mean over the global batch's valid labels (plus a MoE model's
+    weighted load-balance loss), a ``Replicate()`` scalar (so its gradient
+    starts alike on every rank)."""
     from torch.distributed.tensor import Replicate
 
     valid = labels >= 0
-    lse = torch.logsumexp(logits.float(), dim=-1)
+    # the log-sum-exp over the vocab split: each rank's block against the whole row's max (DTensor's
+    # logsumexp would gather the whole vocabulary's float32 logits on every rank)
+    x = logits.float()
+    m = SH.keep_shards(x.detach().amax(dim=-1, keepdim=True), (0,))  # each partial reduced at once
+    lse = torch.log(SH.keep_shards(torch.sum(torch.exp(x - m), dim=-1), (0,))) + m[..., 0]
     label_logit = _label_logits(logits, torch.clamp_min(labels, 0).long()).float()
     nll = (lse - label_logit) * valid.float()
     n_valid = torch.clamp_min(valid.sum(), 1)
     whole = [Replicate()] * logits.device_mesh.ndim
-    loss = (nll.sum() / n_valid).redistribute(logits.device_mesh, whole)
-    return loss, {"loss": loss, "nll": loss, **aux}
+    nll = (nll.sum() / n_valid).redistribute(logits.device_mesh, whole)
+    aux = {k: v.redistribute(logits.device_mesh, whole) for k, v in aux.items()}
+    loss = nll + cfg.router_aux_weight * aux["load_balance_loss"] if cfg.family == "moe" else nll
+    return loss, {"loss": loss, "nll": nll, **aux}
 
 
 def _label_logits(logits, labels):
@@ -428,14 +470,25 @@ def _attn_cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
     return max_len
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None, mesh=None) -> dict:
     """An empty cache for ``batch`` requests of up to ``max_len`` tokens
-    (``dtype``: the model's unless given)."""
-    kinds = layer_kinds(cfg)
-    dev = resolve_device(device)
+    (``dtype``: the model's unless given).  With ``mesh`` (a ``DeviceMesh``)
+    every tensor is a DTensor of zeros placed by :func:`cache_axes` under the
+    ambient rules, each rank holding its shard only."""
     dtype = dtype or model_dtype(cfg)
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    if mesh is not None:
+        from torch.utils._mode_utils import no_dispatch
+
+        # the whole cache's shapes (no rank's sequence slice), meta tensors made outside any
+        # dispatch mode: a dry run's counters see the shards only
+        with SH.use_compat_mesh(SH.AbstractMesh()), no_dispatch():
+            whole = init_cache(cfg, batch, max_len, dtype, device="meta")
+        specs = SH.shard_params(mesh, cache_axes(cfg), abstract_tree=whole)
+        return SH.tree_map_with(lambda x, pl: SH.zeros(x.shape, x.dtype, mesh, pl, dev)
+                                if isinstance(x, torch.Tensor) else x, whole, specs)
     caches = []
-    for kind in kinds:
+    for kind in layer_kinds(cfg):
         if kind == "mamba":
             caches.append(S.init_mamba_cache(cfg, batch, dtype, dev))
         elif kind == "rec":
@@ -470,6 +523,13 @@ def cache_axes(cfg: ModelConfig) -> dict:
     return {"layers": caches, "len": ()}
 
 
+def _as_cache_axes(cfg: ModelConfig, cache: dict) -> dict:
+    """A placed cache's states (the scans' last states, a decoder's cross
+    keys / values, a rolled window) redistributed to :func:`cache_axes`'
+    placements (``shard`` on each leaf)."""
+    return SH.tree_map_with(lambda x, axes: SH.shard(x, *axes) if SH.is_placed(x) else x, cache, cache_axes(cfg))
+
+
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_block: int = 1024,
             kv_block: int = 1024, impl=None, device=None):
     """Run the prompt ``batch["tokens"] (B, S)`` (dense, no padding), fill the
@@ -478,15 +538,25 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_bloc
     each decoder layer's cross-attention keys / values in its cache; a VLM
     splices ``batch["vision_embeds"]`` over ``batch["vision_mask"]``.  A window
     cache shorter than the prompt keeps the last positions, position p at slot
-    ``p % window`` (decode's circular indexing)."""
+    ``p % window`` (decode's circular indexing).  On placed parameters a plain
+    batch is placed by :data:`BATCH_AXES` first, and the cache comes back
+    placed by :func:`cache_axes`."""
     check_impl(impl)
     dev = _device(params, device)
-    _check_placed(cfg, params, "prefill")
+    table = params["embed.tokens"]
+    with _mesh_of(params):
+        if SH.is_placed(table):
+            batch = place_batch(table.device_mesh, batch)
+        return _prefill(cfg, params, batch, max_len, dev, q_block=q_block, kv_block=kv_block, impl=impl)
+
+
+def _prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, dev, *, q_block, kv_block, impl):
     kw = dict(q_block=q_block, kv_block=kv_block, impl=impl)
-    s = torch.as_tensor(batch["tokens"]).shape[1]
     dtype = model_dtype(cfg)
     x = _embed_inputs(cfg, params, batch, dev)
-    cache = init_cache(cfg, x.shape[0], max_len, dtype, device=dev)
+    s = x.shape[1]
+    mesh = x.device_mesh if SH.is_placed(x) else None
+    cache = init_cache(cfg, x.shape[0], max_len, dtype, device=dev, mesh=mesh)
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
     new_caches = []
     for kind, p, lc in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
@@ -502,25 +572,49 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_bloc
         k, v = state
         clen = lc["k"].shape[1]
         if clen < s and "seq_len" not in lc:  # a rolling window cache; a sequence slice is never circular
-            lc["k"] = torch.roll(k[:, -clen:], s % clen, dims=1).to(dtype)
-            lc["v"] = torch.roll(v[:, -clen:], s % clen, dims=1).to(dtype)
+            lc["k"], lc["v"] = (_window_tail(t, clen, s, dtype) for t in (k, v))
             lc["len"] = s
         else:
             L.fill_attention_cache(lc, k, v)
         new_caches.append(lc)
     x = L.apply_norm(cfg, params, "final_norm", x[:, -1:])
-    return L.unembed(cfg, params, x), {"layers": new_caches, "len": s}
+    cache = {"layers": new_caches, "len": s}
+    return L.unembed(cfg, params, x), cache if mesh is None else _as_cache_axes(cfg, cache)
+
+
+def _window_tail(k, clen: int, s: int, dtype):
+    """A window cache of ``clen`` slots from a prompt's keys / values ``(B, S,
+    KV, D)``: the last ``clen`` positions, position p at slot ``p % clen``
+    (placed: on each rank's rows and heads, the sequence whole)."""
+    def tail(t):
+        return torch.roll(t[:, -clen:], s % clen, dims=1).to(dtype)
+
+    if not SH.is_placed(k):
+        return tail(k)
+    k = SH.keep_shards(k, (0, 2))
+    return SH.local_call(tail, (k,), tuple(k.placements))
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, device=None):
     """One decode step: tokens ``(B, 1)`` -> ``(logits (B, 1, V_pad), new
-    cache)``.  The attention caches' k / v are updated in place."""
+    cache)``.  The attention caches' k / v are updated in place.  On placed
+    parameters the cache is placed (as :func:`prefill` returns it) and plain
+    tokens are placed by ``("batch", None)``."""
     dev = _device(params, device)
-    _check_placed(cfg, params, "decode")
+    table = params["embed.tokens"]
+    with _mesh_of(params):
+        if SH.is_placed(table):
+            tokens = place_batch(table.device_mesh, {"tokens": tokens})["tokens"]
+        return _decode_step(cfg, params, _on(tokens, dev), cache)
+
+
+def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
     pos = cache["len"]
-    x = L.embed_tokens(cfg, params, torch.as_tensor(tokens, device=dev), position_offset=pos)
+    x = L.embed_tokens(cfg, params, tokens, position_offset=pos)
     new_caches = []
     for kind, p, lc in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
+        if SH.is_placed(x):
+            p = _fsdp_gather(p)
         if kind == "mamba":
             h, nc = S.apply_mamba_decode(cfg, p, "mixer", L.apply_norm(cfg, p, "norm", x), lc)
             new_caches.append(nc)
@@ -540,4 +634,5 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, device=N
         new_caches.append(nc)
         x = _feed_forward(cfg, kind, p, x + h)[0]
     logits = L.unembed(cfg, params, L.apply_norm(cfg, params, "final_norm", x))
-    return logits, {"layers": new_caches, "len": pos + 1}
+    cache = {"layers": new_caches, "len": pos + 1}
+    return logits, _as_cache_axes(cfg, cache) if SH.is_placed(logits) else cache

@@ -269,14 +269,21 @@ def replicated_like(t: torch.Tensor, ref):
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def place(tree, mesh, placements_tree):
+def place(tree, mesh, placements_tree, *, copy: bool = True):
     """Each tensor leaf of ``tree`` as a DTensor on ``mesh`` with the
     placements of the matching leaf of ``placements_tree`` (what
     :func:`shard_params` gives; a DTensor leaf is redistributed to them).
     Every rank holds the same whole tensor, so each cuts its own shard and
     nothing is sent (``distribute_tensor(..., src_data_rank=None)``).
-    Non-tensor leaves are kept as they are."""
-    from torch.distributed.tensor import distribute_tensor
+    Non-tensor leaves are kept as they are.
+
+    ``copy=False`` makes each rank's shard a view of the whole leaf where it
+    is contiguous there (a split of the leading dimension, or none), and a
+    copy elsewhere: for leaves that nothing writes in place, such as the
+    parameters a server reads, which then take no memory beyond the whole
+    leaves (ranks sharing one card's parameters by CUDA IPC)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     mesh = _as_abstract(mesh)._device_mesh()
 
@@ -285,15 +292,20 @@ def place(tree, mesh, placements_tree):
             return x.redistribute(mesh, placements)
         if not isinstance(x, torch.Tensor):
             return x
-        return distribute_tensor(x.detach(), mesh, placements, src_data_rank=None)
+        if copy:
+            return distribute_tensor(x.detach(), mesh, placements, src_data_rank=None)
+        shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, placements)
+        local = x.detach()[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        return DTensor.from_local(local if local.is_contiguous() else local.contiguous(), mesh, placements,
+                                  run_check=False, shape=x.shape, stride=x.stride())
 
-    return _zip_map(one, tree, placements_tree)
+    return tree_map_with(one, tree, placements_tree)
 
 
 def gather(tree):
     """:func:`place`'s inverse: each DTensor leaf as its whole tensor
     (``full_tensor()``, a collective: every rank of the mesh calls it)."""
-    return _zip_map(lambda x, _: x.full_tensor() if is_placed(x) else x, tree, None)
+    return tree_map_with(lambda x, _: x.full_tensor() if is_placed(x) else x, tree, None)
 
 
 def local_call(fn, inputs, out_placements, in_grad_placements=None):
@@ -382,6 +394,44 @@ def split_index(x, dim: int) -> tuple[int, int]:
     return index, count
 
 
+def local_offset(x) -> tuple[int, ...]:
+    """Where this rank's local shard of the DTensor ``x`` starts in the whole
+    tensor, one offset per dimension."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return tuple(compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)[1])
+
+
+def update_slice(dst, src, start: int, dim: int = 1) -> None:
+    """``dst[..., start:start + n, ...] = src`` along ``dim`` on DTensors, in
+    place (the placed form of ``dynamic_update_slice``): ``src`` is placed as
+    ``dst`` is, whole along ``dim``, and each rank copies the part of it that
+    falls in its own shard of ``dst``, cast to ``dst``'s dtype."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Replicate() if p == Shard(dim) else p for p in dst.placements)
+    if tuple(src.placements) != want:
+        src = src.redistribute(dst.device_mesh, want)
+    d_loc, s_loc = dst.to_local(), src.to_local()
+    off, n = local_offset(dst)[dim], src.shape[dim]
+    lo, hi = max(start, off), min(start + n, off + d_loc.shape[dim])
+    if hi > lo:
+        d_loc.narrow(dim, lo - off, hi - lo).copy_(s_loc.narrow(dim, lo - start, hi - lo))
+
+
+def zeros(shape, dtype, mesh, placements, device):
+    """A DTensor of zeros of the whole ``shape`` placed by ``placements``: each
+    rank allocates its own shard only (on ``device``: the meta device gives
+    shapes without storage)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local_shape = compute_local_shape_and_global_offset(tuple(shape), mesh, placements)[0]
+    local = torch.zeros(local_shape, dtype=dtype, device=device)
+    stride = [math.prod(shape[d + 1:]) for d in range(len(shape))]  # the whole tensor's, contiguous
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+
 def keep_shards(x, dims: tuple[int, ...]):
     """The DTensor ``x`` redistributed so that it is split along ``dims`` only:
     every other ``Shard`` and every ``Partial`` becomes ``Replicate()``."""
@@ -391,17 +441,17 @@ def keep_shards(x, dims: tuple[int, ...]):
     return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
-def _zip_map(fn, tree, other):
+def tree_map_with(fn, tree, other):
     """``fn(leaf, other's leaf)`` over ``tree``'s dicts, lists and tuples
-    (``other``: a tree of the same nesting whose leaves are placements tuples,
-    or None)."""
+    (``other``: a tree of the same nesting whose leaves are placements tuples
+    or logical-axes tuples, or None)."""
     if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, None if other is None else other[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and not (other is not None and _is_placements(other)):
+        return {k: tree_map_with(fn, v, None if other is None else other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not (other is not None and (_is_placements(other) or is_axes_leaf(other))):
         subs = [None] * len(tree) if other is None else other
         if len(subs) != len(tree):
             raise ValueError(f"{len(tree)} entries against {len(subs)} placements")
-        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, subs))
+        return type(tree)(tree_map_with(fn, v, o) for v, o in zip(tree, subs))
     return fn(tree, other)
 
 
@@ -461,7 +511,7 @@ def shard_params(mesh, axes_tree, rules: Rules | None = None, abstract_tree=None
     rules = rules or current_rules()
 
     def one(axes, x):
-        return logical_sharding(mesh, axes, rules, None if x is None else tuple(x.shape))
+        return logical_sharding(mesh, axes, rules, tuple(x.shape) if isinstance(x, torch.Tensor) else None)
 
     return _map_axes(one, axes_tree, abstract_tree)
 

@@ -71,14 +71,13 @@ def make_train_step(
     the kernels."""
 
     def loss_of(params, mb):
-        table = params["embed.tokens"]
-        dev = (table.to_local() if S.is_placed(table) else table).device
-        return T.loss_fn(cfg, params, mb, q_block=q_block, kv_block=kv_block, remat=remat, impl=impl, device=dev)
+        return T.loss_fn(cfg, params, mb, q_block=q_block, kv_block=kv_block, remat=remat, impl=impl,
+                         device=_local_device(params))
 
     def train_step(params, opt_state, batch):
         table = params["embed.tokens"]
         if S.is_placed(table) and not S.is_placed(batch["tokens"]):  # the same whole batch on every rank
-            batch = place_batch(table.device_mesh, batch)
+            batch = T.place_batch(table.device_mesh, batch)
         leaves, treedef = tree_lib.flatten(params)
         grads = metrics = None
         mbs = _split_microbatches(batch, microbatches)
@@ -121,11 +120,13 @@ def state_shardings(mesh, cfg: ModelConfig, params, opt_state) -> tuple:
             S.shard_params(mesh, opt_state_axes(axes), abstract_tree=opt_state))
 
 
-def place_batch(mesh, batch: dict) -> dict:
-    """A token batch (``tokens``, ``labels``: ``(B, S)``, the same whole batch on
-    every rank) placed on ``mesh`` by ``("batch", "seq")``."""
-    return {k: S.place(v, mesh, S.logical_sharding(mesh, ("batch", "seq"), shape=tuple(v.shape)))
-            for k, v in batch.items()}
+def place_cache(mesh, cfg: ModelConfig, cache: dict, rules=None) -> dict:
+    """A whole cache (:func:`~repro_torch.models.transformer.init_cache` made
+    off a mesh, the same on every rank) placed on ``mesh`` by the model's
+    ``cache_axes`` under ``rules`` (the ambient rules unless given): what
+    :func:`make_decode_step`'s step takes on placed parameters."""
+    rules = rules or S.current_rules()
+    return S.place(cache, mesh, S.shard_params(mesh, T.cache_axes(cfg), rules, abstract_tree=cache))
 
 
 def as_placed_like(g, x):
@@ -148,11 +149,12 @@ def _whole(v):
 def make_prefill(cfg: ModelConfig, max_len: int, *, q_block: int = 1024, kv_block: int = 1024, impl=None):
     """Returns ``prefill(params, batch) -> (last logits, cache)``
     (:func:`repro_torch.models.transformer.prefill` with a cache of
-    ``max_len`` slots), on the device its parameters lie on."""
+    ``max_len`` slots), on the device its parameters lie on; on placed
+    parameters the cache comes back placed by the model's ``cache_axes``."""
 
     def prefill(params, batch):
         return T.prefill(cfg, params, batch, max_len, q_block=q_block, kv_block=kv_block, impl=impl,
-                         device=params["embed.tokens"].device)
+                         device=_local_device(params))
 
     return prefill
 
@@ -160,18 +162,28 @@ def make_prefill(cfg: ModelConfig, max_len: int, *, q_block: int = 1024, kv_bloc
 def make_decode_step(cfg: ModelConfig):
     """Returns ``decode_step(params, tokens, cache) -> (logits, cache)``
     (:func:`repro_torch.models.transformer.decode_step`), on the device its
-    parameters lie on."""
+    parameters lie on; on placed parameters the cache is placed
+    (:func:`place_cache`, or the prefill's)."""
 
     def decode_step(params, tokens, cache):
-        return T.decode_step(cfg, params, tokens, cache, device=params["embed.tokens"].device)
+        return T.decode_step(cfg, params, tokens, cache, device=_local_device(params))
 
     return decode_step
+
+
+def _local_device(params) -> torch.device:
+    """The device of the parameters' storage (a placed table's local shard's)."""
+    table = params["embed.tokens"]
+    return (table.to_local() if S.is_placed(table) else table).device
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """``(B, S, V)`` logits -> ``(B, 1)`` int32 argmax of the last position.
 
     The argmax runs over the padded vocabulary, as in the JAX package; ties go
-    to the lowest id.
+    to the lowest id.  Placed logits are gathered whole first (every rank
+    gets the same tokens).
     """
+    if S.is_placed(logits):
+        logits = logits[:, -1:].full_tensor()
     return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)

@@ -490,6 +490,42 @@ def test_hold_flash_prefill_chunks_the_queries(smoke):
         smoke.hold_flash_prefill(((q, k, v), {"causal": True}, late))
 
 
+def test_first_of_each_keeps_one_call_a_shape_and_keyword_set(smoke):
+    import types
+
+    mod = types.SimpleNamespace(f=lambda x, causal=True: x + 1)
+    a, b = torch.zeros(2, 3), torch.zeros(4)
+    with smoke.FirstOfEach(mod, "f") as rec:
+        for x, causal in ((a, True), (a + 1, True), (b, True), (a, False), (b, True)):
+            mod.f(x, causal=causal)
+    assert [(tuple(args[0].shape), kw) for args, kw, _ in rec.calls] == [
+        ((2, 3), {"causal": True}), ((4,), {"causal": True}), ((2, 3), {"causal": False})]
+    assert float(rec.calls[0][2].sum()) == 6.0 and mod.f(a).shape == (2, 3)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "ssm_scan"])
+def test_hold_local_calls_passes_the_plain_result_and_catches_a_wrong_one(smoke, name):
+    gen = torch.Generator().manual_seed(2)
+    if name == "flash_attention":
+        args = tuple(torch.randn((1, 40, h, 16), generator=gen).to(torch.bfloat16) for h in (4, 2, 2))
+        kw = {"causal": False, "window": 0, "q_offset": 0}  # the whisper encoder's bidirectional layers
+    elif name == "rglru_scan":
+        args, kw = (-torch.rand((1, 30, 8), generator=gen), torch.randn((1, 30, 8), generator=gen)), {}
+    else:
+        args, kw = (-torch.rand((1, 30, 6, 4), generator=gen), torch.randn((1, 30, 6, 4), generator=gen),
+                    torch.randn((1, 30, 4), generator=gen)), {}
+    from repro_torch.kernels.flash_attention.ref import naive_attention
+
+    plain = naive_attention if name == "flash_attention" else smoke.model_kernel_modules()[name][2]
+    out = plain(*args, **kw)
+    held = smoke.hold_local_calls(name, [(args, kw, out)])
+    assert held == {"max_abs_err": 0.0, "shapes": [[list(a.shape) for a in args]]}
+    wrong = out.clone() if name == "flash_attention" else tuple(o.clone() for o in out)
+    (wrong if name == "flash_attention" else wrong[0])[0, -1] += 0.5
+    with pytest.raises(AssertionError, match=f"placed prefill {name}"):
+        smoke.hold_local_calls(name, [(args, kw, out), (args, kw, wrong)])
+
+
 def test_mesh_phase_cuts_tolerances_and_line(smoke):
     from repro_torch.configs import get_config
 
@@ -517,6 +553,46 @@ def test_mesh_phase_cuts_tolerances_and_line(smoke):
     assert smoke.MESH_LINE_KEYS == ("card", "ranks", "mesh", "backend", "parent_gb_at_start", "train", "scans",
                                     "elastic", "launches", "phase_s", "cuts", "tolerances")
     assert smoke.held(1.0, 1.01, 0.02) and not smoke.held(1.0, 1.1, 0.02)
+
+
+def test_placed_serving_phase_cases_tolerances_and_line(smoke):
+    from repro_torch.configs import get_config
+
+    cases = {c[0]: c for c in smoke.PLACED_CASES}
+    assert set(cases) == {"glm4-9b", "glm4-9b_sp_kv", "recurrentgemma-9b", "falcon-mamba-7b", "arctic-480b",
+                          "arctic-480b_ep", "whisper-large-v3", "internvl2-1b"}
+    assert smoke.PLACED_SHAPE == (2, 2) and smoke.PLACED_AXES == ("data", "model") and smoke.PLACED_BATCH == 2
+    # (a): phase 14's model and depth, 2 x 2048 into 4096 slots, 8 steps; then kv_seq on model
+    for name in ("glm4-9b", "glm4-9b_sp_kv"):
+        assert cases[name][1:6] == ("glm4-9b", smoke.TRAIN_LAYERS, 2048, 4096, 8)
+        assert cases[name][7] == (2, 2) and cases[name][9] == {"flash_attention": smoke.TRAIN_LAYERS}
+    assert cases["glm4-9b"][6] == {} and cases["glm4-9b_sp_kv"][6] == {"kv_seq": "model"}
+    # (b): phase 17's depths; recurrentgemma's window cache is full after the prompt and wraps in decode
+    scans = {arch: (layers, want) for arch, layers, want in smoke.MESH_SCAN_MODELS}
+    for arch in ("recurrentgemma-9b", "falcon-mamba-7b"):
+        assert (cases[arch][2], cases[arch][9]) == scans[arch] and cases[arch][3:6] == (2048, 4096, 8)
+    assert get_config("recurrentgemma-9b").window == 2048 < cases["recurrentgemma-9b"][4]
+    # (c): one arctic layer on 1 x 4 (32 experts a rank, a data axis of 1: no FSDP gather), both MoE paths
+    for name in ("arctic-480b", "arctic-480b_ep"):
+        assert cases[name][1:6] == ("arctic-480b", 1, 1024, 2048, 4) and cases[name][7] == smoke.PLACED_MOE_SHAPE
+        assert smoke.PLACED_MOE_SHAPE == (1, 4) and get_config("arctic-480b").n_experts // 4 == 32
+    assert cases["arctic-480b"][8] == {} and cases["arctic-480b_ep"][8] == {"moe_impl": "ep"}
+    # (d): full depth, 2 x 1024 and 8 steps; flash attention once a self-attention layer
+    assert cases["whisper-large-v3"][2] is None and cases["whisper-large-v3"][9] == {"flash_attention": 64}
+    assert cases["internvl2-1b"][2] is None and cases["internvl2-1b"][9] == {"flash_attention": 24}
+    assert smoke.PLACED_LOSS == (("whisper-large-v3", 512), ("internvl2-1b", 512))
+    # (e)
+    assert smoke.PLACED_DRYRUN == (("glm4-9b", "decode_32k", "single", "baseline"),
+                                   ("arctic-480b", "prefill_32k", "multi", "ep_moe"))
+    cuts, tol = smoke.placed_cuts(), smoke.placed_tolerances()
+    assert cuts["whisper-large-v3"]["layers"] == cuts["whisper-large-v3"]["of_layers"] == 32
+    assert (cuts["arctic-480b"]["layers"], cuts["arctic-480b"]["of_layers"]) == (1, 35)
+    assert tol["loss_and_grad_norm"] is smoke.TRAIN_LOSS_TOL and str(smoke.LOGITS_TOL) in tol["logits"]
+    assert smoke.PLACED_LINE_KEYS == ("card", "ranks", "backend", "cases", "loss", "dryrun", "launches",
+                                      "kernel_vs_plain", "rank_peak_memory_gb", "parent_gb", "phase_s", "cuts",
+                                      "tolerances")
+    got, want = torch.zeros(2, 3), torch.tensor([[0.0, 4.0, -1.0], [0.5, 0.0, 0.0]])
+    assert smoke.logits_err(got, want) == (4.0, 4.0)
 
 
 def test_shard_checksums_see_every_bit(smoke):

@@ -1,0 +1,268 @@
+"""The port's multi-pod dry run (``repro_torch.launch.dryrun``) against the JAX package's, on the CPU.
+
+* For every (arch x shape x mesh x variant) cell the JAX package's dry run
+  builds (ten architectures, four shapes less ``long_500k`` for the archs
+  that are not sub-quadratic, 16 x 16 and 2 x 16 x 16, ``baseline`` /
+  ``ep_moe`` / ``sp_kv``): the bytes of rank 0's shard of every parameter,
+  optimizer, cache and batch leaf equal the bytes of JAX's
+  ``NamedSharding(...).shard_shape`` for that leaf.  The JAX side runs in a
+  subprocess that asks XLA for 512 host devices before it imports jax (no
+  compile: ``shard_params`` / ``logical_sharding`` over ``eval_shape``
+  trees, as ``repro.launch.dryrun.build_cell`` shards them); a JAX cache's
+  scalar ``len`` is a Python int in the port and is left out.
+* ``run_cell`` on the smoke config of each family, for train, prefill and
+  decode (and the MoE's ``ep_moe``, the dense decode's ``sp_kv``), on a
+  fake 2 x 4 mesh: ``status: ok`` and the JAX package's record keys.
+* The smoke dense prefill cell's ``flops_per_device`` equals an analytic
+  count of rank 0's products and attention tiles; XLA's ``cost_analysis`` of
+  the same cell, compiled in the subprocess, counts at most 25 % more (the
+  element-wise work) over the same argument bytes.
+* The collectives' ``wire_bytes`` follow ``parse_collectives``' ring model
+  (its results on HLO lines of the same sizes, from the subprocess), and the
+  probe records DTensor's all-gather and the explicit ``all_reduce``.
+* ``benchmarks/roofline.py::analyze_record`` reads a port record.
+"""
+
+import functools
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke_config
+from repro_torch.configs.shapes import SHAPES, applicable
+from repro_torch.kernels.meta import attention_flops
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import fake_mesh, production_layout
+from repro_torch.parallel import sharding as S
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = [(arch, shape, multi, variant) for arch in PORTED_ARCHS for shape in SHAPES
+         if applicable(get_config(arch), shape)[0] for multi in (False, True) for variant in D.VARIANTS]
+JAX_RECORD_KEYS = ("arch", "shape", "mesh", "variant", "status", "chips", "lower_s", "compile_s", "memory",
+                   "flops_per_device", "bytes_per_device", "transcendentals", "collectives", "model_params",
+                   "model_active_params")
+MEMORY_KEYS = ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes", "code_bytes")
+#: (kind, result bytes, group size) of the HLO lines the subprocess hands to parse_collectives.
+COLLECTIVES = (("all-reduce", 4096, 16), ("all-gather", 8192, 16), ("reduce-scatter", 512, 16),
+               ("all-to-all", 2048, 4), ("all-reduce", 1024, 2))
+
+JAX_SCRIPT = r'''
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import dataclasses, functools, json, math, sys
+import jax
+import jax.numpy as jnp
+from repro.configs import ARCH_IDS, get_config
+from repro.configs.shapes import SHAPES, applicable, batch_specs
+from repro.launch.dryrun import _axis_size, _opt_cfg, parse_collectives
+from repro.launch.mesh import make_production_mesh
+from repro.models import transformer as T
+from repro.optim import adamw_init
+from repro.optim.adamw import opt_state_axes
+from repro.parallel.sharding import DEFAULT_RULES, logical_sharding, shard_params
+
+
+@functools.cache
+def abstract(arch):
+    cfg = get_config(arch)
+    params_abs = T.abstract_params(cfg)
+    return params_abs, T.param_axes(cfg), jax.eval_shape(lambda p: adamw_init(p, _opt_cfg(cfg)), params_abs)
+
+
+@functools.cache
+def cache_shapes(arch, shape_name):
+    spec = SHAPES[shape_name]
+    return jax.eval_shape(lambda: T.init_cache(get_config(arch), spec.global_batch, spec.seq_len, jnp.bfloat16))
+
+
+def named(prefix, tree, shardings, out):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    for (path, x), sh in zip(flat, jax.tree.leaves(shardings, is_leaf=lambda s: hasattr(s, "shard_shape")), strict=True):
+        keys = [str(k.key) if hasattr(k, "key") else str(k.idx) for k in path]
+        if keys and keys[-1] == "len":
+            continue
+        out["/".join([prefix, *keys])] = math.prod(sh.shard_shape(tuple(x.shape))) * jnp.dtype(x.dtype).itemsize
+
+
+def cell(arch, shape_name, mesh, variant):
+    cfg = get_config(arch)
+    rules = dict(DEFAULT_RULES)
+    if variant == "sp_kv":
+        rules["kv_seq"] = "model"
+    spec = SHAPES[shape_name]
+    params_abs, axes, opt_abs = abstract(arch)
+    out = {}
+    named("params", params_abs, shard_params(mesh, axes, rules, abstract_tree=params_abs), out)
+    batch_abs = batch_specs(cfg, shape_name)
+    if spec.kind != "decode":
+        for k, v in batch_abs.items():
+            logical = ("batch", "seq") if k in ("tokens", "labels", "vision_mask") else ("batch", None, "embed")
+            named(f"batch/{k}", v, logical_sharding(mesh, logical, rules, tuple(v.shape)), out)
+    if spec.kind == "train":
+        opt_sh = shard_params(mesh, opt_state_axes(axes), rules, abstract_tree=opt_abs)
+        opt_sh["step"] = logical_sharding(mesh, (), rules)
+        named("opt_state", opt_abs, opt_sh, out)
+    if spec.kind == "decode":
+        bsz = spec.global_batch
+        cache_abs = cache_shapes(arch, shape_name)
+        cache_rules = dict(rules)
+        if bsz % _axis_size(mesh, rules.get("batch")) != 0:
+            cache_rules["batch"] = None
+        if shape_name == "long_500k":
+            cache_rules["kv_seq"] = None
+        named("cache", cache_abs, shard_params(mesh, T.cache_axes(cfg), cache_rules, abstract_tree=cache_abs), out)
+        named("tokens", batch_abs["tokens"], logical_sharding(mesh, ("batch", None), cache_rules), out)
+    return out
+
+
+meshes = {False: make_production_mesh(multi_pod=False), True: make_production_mesh(multi_pod=True)}
+cells = {}
+for arch in ARCH_IDS:
+    for shape in SHAPES:
+        if applicable(get_config(arch), shape)[0]:
+            for multi, mesh in meshes.items():
+                for variant in ("baseline", "ep_moe", "sp_kv"):
+                    cells[f"{arch}|{shape}|{int(multi)}|{variant}"] = cell(arch, shape, mesh, variant)
+hlo = {f"{kind}|{size}|{n}": parse_collectives(
+    f"%x = f32[{size // 4}]{{0}} {kind}(f32[{size // 4}]{{0}} %y), replica_groups={{{{{','.join(map(str, range(n)))}}}}}",
+    default_group=512) for kind, size, n in json.loads(sys.argv[2])}
+# the smoke dense prefill cell on 2 x 4 of the 512 devices, compiled: XLA's cost and memory analyses
+import numpy as np
+from repro.configs import get_smoke_config
+from repro.parallel.sharding import axis_rules, use_compat_mesh
+cfg = get_smoke_config("glm4-9b")
+mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
+params_abs = T.abstract_params(cfg)
+psh = shard_params(mesh, T.param_axes(cfg), DEFAULT_RULES, abstract_tree=params_abs)
+batch_abs = batch_specs(cfg, "prefill_32k")
+bsh = {k: logical_sharding(mesh, ("batch", "seq"), DEFAULT_RULES, tuple(v.shape)) for k, v in batch_abs.items()}
+fn = jax.jit(lambda p, b: T.prefill(cfg, p, b, max_len=32768, q_block=4096, kv_block=4096), in_shardings=(psh, bsh))
+with use_compat_mesh(mesh), axis_rules(DEFAULT_RULES):
+    compiled = fn.lower(params_abs, batch_abs).compile(compiler_options={"xla_backend_optimization_level": 0})
+smoke = {"flops": compiled.cost_analysis()["flops"],
+         "argument_bytes": compiled.memory_analysis().argument_size_in_bytes}
+json.dump({"cells": cells, "collectives": hlo, "smoke_prefill": smoke}, open(sys.argv[1], "w"))
+'''
+
+
+@functools.cache
+def jax_side(tmp_dir: str) -> dict:
+    out = Path(tmp_dir) / "jax_dryrun.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", JAX_SCRIPT, str(out), json.dumps(COLLECTIVES)], check=True, env=env,
+                   cwd=ROOT, timeout=600)
+    return json.loads(out.read_text())
+
+
+@pytest.fixture(scope="module")
+def jax_records(tmp_path_factory):
+    return jax_side(str(tmp_path_factory.mktemp("jax")))
+
+
+@pytest.mark.parametrize("arch,shape,multi,variant", CELLS)
+def test_every_leafs_shard_bytes_equal_jaxs(jax_records, arch, shape, multi, variant):
+    mesh = S.AbstractMesh(*production_layout(multi_pod=multi))
+    got = D.leaf_bytes(D.build_cell(arch, shape, mesh, variant=variant), mesh)
+    want = jax_records["cells"][f"{arch}|{shape}|{int(multi)}|{variant}"]
+    assert set(got) == set(want), sorted(set(got) ^ set(want))[:10]
+    assert {k: v for k, v in got.items() if v != want[k]} == {}
+
+
+def test_the_cells_are_the_jax_packages(jax_records):
+    assert len(CELLS) == len(jax_records["cells"]) == 192
+    skipped = [(a, s) for a in PORTED_ARCHS for s in SHAPES if not applicable(get_config(a), s)[0]]
+    assert {s for _, s in skipped} == {"long_500k"} and len(skipped) == 8
+
+
+SMOKE_CELLS = [(arch, shape, "baseline") for arch in ("glm4-9b", "internvl2-1b", "arctic-480b", "whisper-large-v3",
+                                                      "recurrentgemma-9b", "falcon-mamba-7b")
+               for shape in ("train_4k", "prefill_32k", "decode_32k")]
+SMOKE_CELLS += [("arctic-480b", "train_4k", "ep_moe"), ("arctic-480b", "decode_32k", "ep_moe"),
+                ("glm4-9b", "decode_32k", "sp_kv"), ("falcon-mamba-7b", "long_500k", "baseline")]
+
+
+@pytest.mark.parametrize("arch,shape,variant", SMOKE_CELLS)
+def test_run_cell_on_a_small_fake_mesh(tmp_path, arch, shape, variant):
+    rec = D.run_cell(arch, shape, False, str(tmp_path), variant, cfg=get_smoke_config(arch), mesh_shape=(2, 4))
+    assert rec["status"] == "ok", rec.get("trace")
+    assert all(k in rec for k in JAX_RECORD_KEYS) and tuple(rec["memory"]) == MEMORY_KEYS
+    assert rec["chips"] == 8 and rec["memory"]["code_bytes"] is None and rec["temp_method"] == D.TEMP_METHOD
+    assert rec["flops_per_device"] > 0 and rec["memory"]["argument_bytes"] > 0 and rec["memory"]["temp_bytes"] > 0
+    suffix = "" if variant == "baseline" else f"__{variant}"
+    assert json.loads((tmp_path / f"{arch}__{shape}__fake2x4{suffix}.json").read_text()) == rec
+    if variant == "ep_moe" or (variant == "sp_kv"):  # the explicit collectives (c10d all_reduce) of EP / SP
+        assert rec["collectives"]["all-reduce"]["count"] > 0
+
+
+def test_a_skipped_cell_is_recorded(tmp_path):
+    rec = D.run_cell("glm4-9b", "long_500k", True, str(tmp_path))
+    assert rec["status"] == "skipped" and "sub-quadratic" in rec["skip_reason"]
+    assert (tmp_path / "glm4-9b__long_500k__pod2x16x16.json").exists()
+
+
+def test_smoke_dense_prefill_flops_are_its_products_and_attention(tmp_path):
+    """Rank 0 of 2 x 4 holds 16 of the 32 rows, one of the 4 q heads, both kv
+    heads (2 do not split over 4), a quarter of the MLP and of the vocab."""
+    cfg = get_smoke_config("glm4-9b")
+    rec = D.run_cell("glm4-9b", "prefill_32k", False, str(tmp_path), cfg=cfg, mesh_shape=(2, 4))
+    b, s = SHAPES["prefill_32k"].global_batch // 2, SHAPES["prefill_32k"].seq_len
+    d, dh, tp = cfg.d_model, cfg.d_head, 4
+    h, kv, f = cfg.n_heads // tp, cfg.n_kv_heads, cfg.d_ff // tp
+    assert cfg.n_kv_heads % tp and cfg.gated_mlp and not cfg.tie_embeddings
+    attention = attention_flops((b, s, h, dh), (b, s, 1, dh), True, 0, 0, 4096, 4096)
+    layer = (2 * b * s * d * h * dh + 2 * (2 * b * s * d * kv * dh)  # q, then k and v (whole)
+             + attention + 2 * b * s * h * dh * d + 3 * (2 * b * s * d * f))  # out projection, gate / up / down
+    assert rec["flops_per_device"] == cfg.n_layers * layer + 2 * b * d * (cfg.padded_vocab // tp)  # last logits
+
+
+def test_jax_cost_analysis_beside_the_port(jax_records, tmp_path):
+    """The smoke dense prefill cell on 2 x 4, compiled by XLA: the same
+    argument bytes; XLA's FLOPs count the element-wise work too, so they are
+    at least the port's count of the products and attention tiles."""
+    rec = D.run_cell("glm4-9b", "prefill_32k", False, str(tmp_path), cfg=get_smoke_config("glm4-9b"),
+                     mesh_shape=(2, 4))
+    jax_smoke = jax_records["smoke_prefill"]
+    print(f"smoke glm4-9b prefill_32k on 2 x 4: JAX cost_analysis flops {jax_smoke['flops']:.6g}, "
+          f"the port's {rec['flops_per_device']:.6g}")
+    assert rec["memory"]["argument_bytes"] == jax_smoke["argument_bytes"]
+    assert rec["flops_per_device"] <= jax_smoke["flops"] <= 1.25 * rec["flops_per_device"]
+
+
+@pytest.mark.parametrize("kind,size,n", COLLECTIVES)
+def test_wire_bytes_follow_parse_collectives(jax_records, kind, size, n):
+    want = jax_records["collectives"][f"{kind}|{size}|{n}"][kind]
+    assert want["count"] == 1 and want["bytes"] == size
+    assert D.wire_bytes(kind, size, n) == pytest.approx(want["wire_bytes"], rel=1e-12)
+
+
+def test_the_probe_records_dtensors_and_the_explicit_collectives():
+    from torch.distributed.tensor import Replicate, Shard
+
+    with fake_mesh((2, 4), ("data", "model")) as mesh:
+        x = S.zeros((8, 16), torch.float32, mesh, (Shard(0), Replicate()), "meta")
+        probe = D.Probe()
+        with probe:
+            x.redistribute(mesh, (Replicate(), Replicate()))  # all-gather over data: 512 bytes out
+            dist.all_reduce(torch.empty(32, device="meta"), group=mesh.get_group("model"))  # 128 bytes over 4
+    got = probe.collectives
+    assert got["all-gather"] == {"count": 1, "bytes": 512, "wire_bytes": D.wire_bytes("all-gather", 512, 2)}
+    assert got["all-reduce"] == {"count": 1, "bytes": 128, "wire_bytes": D.wire_bytes("all-reduce", 128, 4)}
+
+
+def test_roofline_reads_a_port_record(tmp_path):
+    spec = importlib.util.spec_from_file_location("roofline", ROOT / "benchmarks" / "roofline.py")
+    roofline = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(roofline)
+    rec = D.run_cell("glm4-9b", "decode_32k", False, str(tmp_path), cfg=get_smoke_config("glm4-9b"),
+                     mesh_shape=(2, 4))
+    row = roofline.analyze_record(rec)
+    assert row["chips"] == 8 and row["dominant"] in ("compute", "memory", "collective")
+    assert row["memory_args_gib"] == rec["memory"]["argument_bytes"] / 2**30

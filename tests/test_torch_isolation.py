@@ -131,6 +131,8 @@ def test_every_module_is_found():
         "repro_torch.parallel.sharding",
         "repro_torch.parallel.sp_decode",
         "repro_torch.launch.elastic_restart",
+        "repro_torch.launch.dryrun",
+        "repro_torch.kernels.meta",
         "repro_torch.models.moe_ep",
         "repro_torch.launch.mesh",
     ):

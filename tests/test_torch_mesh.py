@@ -14,7 +14,10 @@ each rank's q head must meet its own kv head (the GQA trap).
 Also: every gradient comes back with its parameter's placements; taken
 without its redistribution (each rank's raw gradient read as its shard) the
 data-parallel gradients miss the bound; ``shard`` leaves plain tensors
-alone; the families not ported to placed tensors raise; the checkpoint
+alone; the families that raised on placed tensors before (MoE, enc-dec, VLM)
+and prefill / decode run placed on a ``(1,)`` mesh (all six families on 8
+ranks: ``tests/test_torch_placed_serving.py``), as do ``make_prefill`` /
+``make_decode_step`` on a cache ``place_cache`` placed; the checkpoint
 restores onto a ``(1,)`` mesh's placements; a failed write on rank 0 alone
 raises on every rank; ``make_compat_mesh`` refuses a card that is not
 there; and the all-gather built on gloo's ``all_reduce`` gives gloo's own
@@ -150,25 +153,49 @@ def test_shard_places_a_dtensor_by_its_logical_axes(one_rank):
         assert tuple(y.placements) == (Shard(0),) and torch.equal(S.gather(y), S.gather(x))
 
 
+def smoke_batch(cfg, b=2, s=8) -> dict:
+    """Tokens, with an encoder-decoder's frames and a VLM's vision inputs."""
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encoder_positions, cfg.d_model), generator=gen)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn((b, cfg.vision_tokens, cfg.d_model), generator=gen)
+        batch["vision_mask"] = torch.arange(s)[None, :].repeat(b, 1) < cfg.vision_tokens
+    return batch
+
+
 @pytest.mark.parametrize("arch", ["arctic-480b", "whisper-large-v3", "internvl2-1b"])
 def test_families_not_ported_to_placed_tensors_raise(one_rank, arch):
-    cfg = get_smoke_config(arch)
+    """The families that raised on placed tensors before (MoE, enc-dec, VLM)
+    now run their forward placed, here on a ``(1,)`` mesh, and give the
+    single process's logits."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     params = T.init_params(cfg, 0, device="cpu")
+    batch = smoke_batch(cfg)
+    want = T.forward(cfg, params, batch, q_block=BLOCK, kv_block=BLOCK, device="cpu")
     with S.use_compat_mesh(one_rank):
         pp = S.place(params, one_rank, S.shard_params(one_rank, T.param_axes(cfg), abstract_tree=params))
-        tokens = S.place(torch.zeros((2, 8), dtype=torch.int64), one_rank,
-                         S.logical_sharding(one_rank, ("batch", "seq")))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            T.forward(cfg, pp, {"tokens": tokens, "labels": tokens}, device="cpu")
+        got = T.forward(cfg, pp, T.place_batch(one_rank, batch), q_block=BLOCK, kv_block=BLOCK, device="cpu")
+    assert S.is_placed(got) and torch.allclose(got.full_tensor(), want, atol=1e-5, rtol=0)
 
 
 def test_prefill_and_decode_on_placed_parameters_raise(one_rank):
-    cfg = get_smoke_config("glm4-9b")
+    """Prefill and decode, which raised on placed parameters before, run
+    placed (a ``(1,)`` mesh) and give the single process's logits; the cache
+    comes back placed."""
+    cfg = dataclasses.replace(get_smoke_config("glm4-9b"), dtype="float32")
     params = T.init_params(cfg, 0, device="cpu")
+    batch = smoke_batch(cfg)
+    want, cache = T.prefill(cfg, params, batch, 12, q_block=BLOCK, kv_block=BLOCK, device="cpu")
+    want_step, _ = T.decode_step(cfg, params, batch["tokens"][:, :1], cache, device="cpu")
     with S.use_compat_mesh(one_rank):
         pp = S.place(params, one_rank, S.shard_params(one_rank, T.param_axes(cfg), abstract_tree=params))
-        with pytest.raises(NotImplementedError, match="prefill"):
-            T.prefill(cfg, pp, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}, 8, device="cpu")
+        got, cache = T.prefill(cfg, pp, batch, 12, q_block=BLOCK, kv_block=BLOCK, device="cpu")
+        assert S.is_placed(cache["layers"][0]["k"])
+        got_step, cache = T.decode_step(cfg, pp, batch["tokens"][:, :1], cache, device="cpu")
+    assert torch.allclose(got.full_tensor(), want, atol=1e-5, rtol=0)
+    assert torch.allclose(got_step.full_tensor(), want_step, atol=1e-5, rtol=0) and cache["len"] == 9
 
 
 def test_restore_onto_a_mesh_replicated(one_rank, tmp_path):
@@ -221,3 +248,33 @@ def test_the_all_gather_leaves_a_group_of_another_backend_to_its_own():
         calls = gloo_cuda.STATS.calls
         out = gloo_cuda.all_gather_into_tensor(torch.arange(6.0).reshape(3, 2), 2, dist.group.WORLD)
         assert out.shape == (6, 2) and gloo_cuda.STATS.calls == calls
+
+
+def test_place_cache_and_the_placed_decode_step(one_rank):
+    """``place_cache`` places a whole cache by ``cache_axes``; ``make_prefill`` /
+    ``make_decode_step`` run on placed parameters and give the single process's
+    logits."""
+    from repro_torch.train.steps import make_decode_step, make_prefill, place_cache
+
+    cfg = dataclasses.replace(get_smoke_config("glm4-9b"), dtype="float32")
+    params = T.init_params(cfg, 0, device="cpu")
+    batch = smoke_batch(cfg)
+    want, cache = make_prefill(cfg, 12, q_block=BLOCK, kv_block=BLOCK)(params, batch)
+    want_step, _ = make_decode_step(cfg)(params, batch["tokens"][:, :1], copy_cache(cache))
+    with S.use_compat_mesh(one_rank):
+        pp = S.place(params, one_rank, S.shard_params(one_rank, T.param_axes(cfg), abstract_tree=params))
+        placed = place_cache(one_rank, cfg, copy_cache(cache))
+        specs = S.shard_params(one_rank, T.cache_axes(cfg), abstract_tree=cache)
+        pairs = []
+        S.tree_map_with(lambda x, pl: pairs.append((tuple(x.placements), tuple(pl)))
+                        if isinstance(x, torch.Tensor) else None, placed, specs)
+        assert pairs and all(got == want for got, want in pairs)
+        got, _ = make_prefill(cfg, 12, q_block=BLOCK, kv_block=BLOCK)(pp, batch)
+        got_step, placed = make_decode_step(cfg)(pp, batch["tokens"][:, :1], placed)
+    assert torch.allclose(got.full_tensor(), want, atol=1e-5, rtol=0)
+    assert torch.allclose(got_step.full_tensor(), want_step, atol=1e-5, rtol=0) and placed["len"] == 9
+
+
+def copy_cache(cache):
+    return {"layers": [{k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in lc.items()}
+                       for lc in cache["layers"]], "len": cache["len"]}

@@ -20,7 +20,7 @@ from repro_torch.models.params import from_jax
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel import gloo_cuda
 from repro_torch.parallel import sharding as S
-from repro_torch.train.steps import make_train_step, place_batch, state_shardings
+from repro_torch.train.steps import make_train_step, state_shardings
 from torch.distributed.tensor import DTensor
 
 MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
@@ -55,37 +55,39 @@ def flat_names(tree):
 
 def grads_rank(rank, path, mesh_shape):
     """For each case of the file (``{"cfg", "params" (the JAX package's,
-    numpy), "batch"}``): ``loss_fn`` and its gradient on the parameters and
-    batch placed on the mesh.  Returns per case the loss, every gradient
-    gathered whole after its redistribution to the parameter's placements,
-    whether each came back with those placements, and the gradients read as
-    if the redistribution were left out (each rank's raw local gradient taken
-    for its shard, where it has the shard's shape: the mutation the
-    data-parallel all-reduce repairs; None elsewhere)."""
+    numpy), "batch"}``): :func:`placed_grads` on the mesh."""
     mesh = cpu_mesh(mesh_shape)
-    out = {}
-    for name, case in load(path).items():
-        cfg = case["cfg"]
-        params = from_jax(cfg, case["params"], "cpu")
-        with S.use_compat_mesh(mesh):
-            placed = S.place(params, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=params))
-            batch = place_batch(mesh, {k: torch.as_tensor(v) for k, v in case["batch"].items()})
-            leaves, treedef = tree_lib.flatten(placed)
-            wrt = [x.detach().requires_grad_(True) for x in leaves]
-            loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, q_block=case["block"], kv_block=case["block"],
-                                device="cpu")
-            grads = torch.autograd.grad(loss, wrt)
-            whole, raw, same = [], [], []
-            for x, g in zip(wrt, grads):
-                fits = g.to_local().shape == x.to_local().shape  # a Partial where the parameter is whole
-                raw.append(DTensor.from_local(g.to_local(), mesh, x.placements, run_check=False).full_tensor()
-                           if fits else None)
-                g = g.redistribute(mesh, x.placements)
-                same.append(tuple(g.placements) == tuple(x.placements))
-                whole.append(g.full_tensor())
-        out[name] = {"loss": float(loss.to_local()), "grads": whole, "raw_grads": raw, "same_placements": same,
-                     "names": flat_names(params)}
-    return out
+    return {name: placed_grads(mesh, case) for name, case in load(path).items()}
+
+
+def placed_grads(mesh, case):
+    """``loss_fn`` and its gradient on the case's parameters and batch placed
+    on the mesh.  Returns the loss, every gradient gathered whole after its
+    redistribution to the parameter's placements, whether each came back with
+    those placements, and the gradients read as if the redistribution were
+    left out (each rank's raw local gradient taken for its shard, where it has
+    the shard's shape: the mutation the data-parallel all-reduce repairs; None
+    elsewhere)."""
+    cfg = case["cfg"]
+    params = from_jax(cfg, case["params"], "cpu")
+    with S.use_compat_mesh(mesh):
+        placed = S.place(params, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=params))
+        batch = T.place_batch(mesh, {k: torch.as_tensor(v) for k, v in case["batch"].items()})
+        leaves, treedef = tree_lib.flatten(placed)
+        wrt = [x.detach().requires_grad_(True) for x in leaves]
+        loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, q_block=case["block"], kv_block=case["block"],
+                            device="cpu")
+        grads = torch.autograd.grad(loss, wrt)
+        whole, raw, same = [], [], []
+        for x, g in zip(wrt, grads):
+            fits = g.to_local().shape == x.to_local().shape  # a Partial where the parameter is whole
+            raw.append(DTensor.from_local(g.to_local(), mesh, x.placements, run_check=False).full_tensor()
+                       if fits else None)
+            g = g.redistribute(mesh, x.placements)
+            same.append(tuple(g.placements) == tuple(x.placements))
+            whole.append(g.full_tensor())
+    return {"loss": float(loss.to_local()), "grads": whole, "raw_grads": raw, "same_placements": same,
+            "names": flat_names(params)}
 
 
 def train_rank(rank, path, mesh_shape, steps):
@@ -102,7 +104,7 @@ def train_rank(rank, path, mesh_shape, steps):
         state = (params, adamw_init(params, opt_cfg))
         params, opt_state = S.place(state, mesh, state_shardings(mesh, cfg, *state))
         for b in case["batches"]:
-            params, opt_state, m = step(params, opt_state, place_batch(mesh, {k: torch.as_tensor(v)
+            params, opt_state, m = step(params, opt_state, T.place_batch(mesh, {k: torch.as_tensor(v)
                                                                               for k, v in b.items()}))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
