@@ -182,7 +182,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    the grad norm of both against the single-process step on the card (run
    first) within ``TRAIN_LOSS_TOL``, flash attention launched 4 times a
    forward in each rank, every leaf split both ways holding a quarter a rank,
-   and gloo's collectives of the path timed at their sizes in the ranks; (b)
+   the timed step's all-gathers (calls, bytes), and gloo's collectives of the
+   path timed at their sizes in the ranks; (b)
    one ``loss_fn`` and its gradient of falcon-mamba-7b (2 layers) and
    recurrentgemma-9b (3 layers) at published widths, 2 x 512 tokens, the
    ``ssm_scan`` / ``rglru_scan`` / flash launches counted in each rank,

@@ -26,6 +26,9 @@ no storage), placed by ``shard_params`` over ``abstract_params`` /
     to DTensor, whose local operations come back to the counter, so the count
     is one rank's.  Element-wise work is not counted (XLA's
     ``cost_analysis`` counts it: the JAX package's numbers are higher);
+  * ``largest_products``: the operations that count the most FLOPs, by
+    operator and input shapes (calls, FLOPs): a product multiplied whole
+    where its weight is split shows here;
   * ``bytes_per_device``: the bytes each local operation reads and writes
     (views not counted); ``transcendentals``: the elements out of the
     exponentials, logarithms, roots and the like;
@@ -279,6 +282,7 @@ class Probe(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.transcendentals = 0
+        self.products: dict[tuple, list[int]] = {}  # (operator, input shapes) -> [calls, FLOPs]
         self.collectives: dict = {}
         self.live: dict[int, int] = {}
         self.live_bytes = self.peak_bytes = 0
@@ -301,7 +305,12 @@ class Probe(TorchDispatchMode):
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += flops
+            shapes = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            tally = self.products.setdefault((name, shapes), [0, 0])
+            tally[0] += 1
+            tally[1] += flops
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         if not func.is_view:
             self.bytes += sum(_nbytes(t) for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor))
@@ -367,7 +376,16 @@ def run_on_mesh(cell: Cell, mesh) -> dict:
         "bytes_per_device": float(probe.bytes),
         "transcendentals": float(probe.transcendentals),
         "collectives": probe.collectives,
+        "largest_products": largest_products(probe),
     }
+
+
+def largest_products(probe: Probe, n: int = 10) -> list[dict]:
+    """The ``n`` operations of ``probe``'s count with the most FLOPs, each
+    ``{"op", "shapes", "calls", "flops"}``."""
+    top = sorted(probe.products.items(), key=lambda kv: -kv[1][1])[:n]
+    return [{"op": op, "shapes": [list(s) for s in shapes], "calls": calls, "flops": float(flops)}
+            for (op, shapes), (calls, flops) in top]
 
 
 def mesh_name(multi_pod: bool, mesh_shape=None) -> str:
@@ -410,6 +428,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, variant:
             bytes_per_device=got["bytes_per_device"],
             transcendentals=got["transcendentals"],
             collectives=got["collectives"],
+            largest_products=got["largest_products"],
             model_params=cfg.param_count(),
             model_active_params=cfg.active_param_count(),
             temp_method=TEMP_METHOD,

@@ -95,7 +95,10 @@ def mamba_cache_axes() -> dict:
 def apply_mamba_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     """Full-sequence Mamba mixer of a normed input ``(B, S, d)``.  Returns
     ``(out, cache)`` with the decode cache (conv tail and last state)."""
-    x_in, z = torch.chunk(x @ params[f"{name}.in_proj"], 2, dim=-1)
+    # the split output annotated before it is cut, as GSPMD propagates the einsum's split to it: its
+    # cotangent comes back split too (a no-op on plain tensors and in the forward)
+    xz = shard(x @ params[f"{name}.in_proj"], "batch", "seq", "mlp")
+    x_in, z = torch.chunk(xz, 2, dim=-1)
     x_in = shard(x_in, "batch", "seq", "mlp")
     x_conv, _ = causal_conv(x_in, params[f"{name}.conv_w"], params[f"{name}.conv_b"])
     x_act = F.silu(x_conv)

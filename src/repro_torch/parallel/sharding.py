@@ -23,8 +23,8 @@ the port has both:
   * GSPMD (whole arrays placed by the rules; the partitioner inserts the
     collectives): :func:`place` turns a tree of tensors into DTensors on the
     mesh by :func:`shard_params`' placements, :func:`shard` is
-    ``with_sharding_constraint`` (a differentiable ``redistribute`` of a
-    DTensor to the placements its logical axes give), and DTensor's
+    ``with_sharding_constraint`` (a DTensor redistributed to the placements
+    its logical axes give, and its cotangent to the same), and DTensor's
     sharding propagation inserts the collectives in between.  The models
     run on such tensors (:mod:`repro_torch.models.transformer`), their
     kernels on each rank's local shards (``local_map`` in the kernels'
@@ -244,16 +244,18 @@ def is_placed(x) -> bool:
 def shard(x, *logical_axes: str | None):
     """Annotate ``x`` with logical axes (``with_sharding_constraint``).  A
     DTensor is redistributed to the placements the axes give on the ambient
-    mesh (its own mesh when none is ambient): differentiable, its backward
-    redistributes the cotangent back.  A plain tensor is returned as it is, on
-    a mesh or off one: off a mesh the annotation is a no-op, as in the JAX
-    package, and the explicit paths' tensors are already each rank's local
-    shards."""
+    mesh (its own mesh when none is ambient), and so is its cotangent on the
+    way back, as the constraint's transpose constrains it: a cotangent that
+    arrives ``Partial`` is reduced here, where GSPMD reduces it, and the
+    products behind the annotation stay split (:class:`_Constrain`).  A plain
+    tensor is returned as it is, on a mesh or off one: off a mesh the
+    annotation is a no-op, as in the JAX package, and the explicit paths'
+    tensors are already each rank's local shards."""
     if not is_placed(x):
         return x
     mesh = active_abstract_mesh().device_mesh or x.device_mesh
     want = logical_sharding(mesh, logical_axes, current_rules(), tuple(x.shape))
-    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+    return _Constrain.apply(x, mesh, want)
 
 
 def replicated_like(t: torch.Tensor, ref):
@@ -315,32 +317,32 @@ def local_call(fn, inputs, out_placements, in_grad_placements=None):
     ``in_grad_placements``: the placements of each input's gradient when it
     is not the input's own (``Partial()`` on a mesh dimension where an input
     is replicated but the work is split, so each rank's gradient is a part of
-    the sum).  An output placed ``Partial()`` (each rank's part of a sum)
-    takes its gradient whole (``Replicate()`` there): every rank's part
-    needs the whole cotangent of the sum."""
+    the sum).  An output placed ``Partial()`` (each rank's part of a sum) is
+    reduced where it meets a :func:`shard` or a whole operand, and its
+    cotangent comes back whole from there: every rank's part needs the whole
+    cotangent of the sum."""
     from torch.distributed.tensor.experimental import local_map
 
     mesh = inputs[0].device_mesh
     one = _is_placements(out_placements)
-    outs = local_map(fn, out_placements=list(out_placements) if one else out_placements,  # a tuple: one per output
+    return local_map(fn, out_placements=list(out_placements) if one else out_placements,  # a tuple: one per output
                      in_placements=tuple(tuple(x.placements) for x in inputs),
                      in_grad_placements=in_grad_placements, device_mesh=mesh)(*inputs)
-    wrap = lambda y: _WholeGrad.apply(y) if any(p.is_partial() for p in y.placements) else y  # noqa: E731
-    return wrap(outs) if one else tuple(wrap(y) for y in outs)
 
 
-class _WholeGrad(torch.autograd.Function):
-    """The identity on a DTensor whose backward makes the cotangent
-    ``Replicate()`` where the value is ``Partial()``."""
+class _Constrain(torch.autograd.Function):
+    """``with_sharding_constraint`` on a DTensor: the value redistributed to
+    ``want`` (the identity where it is placed so already), and the cotangent
+    redistributed to ``want`` too, not back to the input's placements."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.want = tuple(_replicate_partial(x.placements))
-        return x.view_as(x)
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return x.view_as(x) if tuple(x.placements) == want else x.redistribute(mesh, want)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.redistribute(grad.device_mesh, ctx.want)
+        return grad if tuple(grad.placements) == ctx.want else grad.redistribute(ctx.mesh, ctx.want), None, None
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -370,12 +372,6 @@ def contiguous_grad(x):
     cotangent that comes back through a dtype cast keeps the strides of a
     slice."""
     return _ContiguousGrad.apply(x)
-
-
-def _replicate_partial(placements):
-    from torch.distributed.tensor import Replicate
-
-    return [Replicate() if p.is_partial() else p for p in placements]
 
 
 def split_index(x, dim: int) -> tuple[int, int]:

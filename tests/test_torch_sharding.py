@@ -247,3 +247,109 @@ def test_the_collectives_sum_and_carry_gradients_as_shard_map_does():
         c = rank + 1.0  # each rank's cotangent
         assert out["psum"] == (3.0, c) and out["pvary"] == (c, 3.0) and out["pmean_replicas"] == (1.5, 1.5)
         assert out["psum_bf16"] == (torch.bfloat16, 3.75)
+
+
+# ---- shard's cotangent: with_sharding_constraint's transpose ----------------
+
+#: The program both packages differentiate on a 2 x 4 ``data x model`` mesh: x
+#: ``(8, 16)`` annotated ``("batch", "embed")``, then a column- and a row-parallel
+#: product, so that x's cotangent arrives at the annotation as a partial sum over
+#: ``model``.  ``match``: x placed as the annotation says; ``redistribute``: x whole.
+COTANGENT_CASES = {"match": ("data", None), "redistribute": (None, None)}
+
+COTANGENT_SCRIPT = r'''
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import json, sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.parallel.sharding import DEFAULT_RULES, axis_rules, shard, use_compat_mesh
+
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
+w1_sh, w2_sh = NamedSharding(mesh, P(None, "model")), NamedSharding(mesh, P("model", None))
+out = {}
+for case, spec in json.loads(sys.argv[1]).items():
+    def loss(x, w1, w2):
+        return jnp.sum((shard(x, "batch", "embed") @ w1) @ w2)
+    args = [jax.device_put(jnp.ones(shape), sh)
+            for shape, sh in (((8, 16), NamedSharding(mesh, P(*spec))), ((16, 32), w1_sh), ((32, 16), w2_sh))]
+    with use_compat_mesh(mesh), axis_rules(DEFAULT_RULES):
+        grad = jax.jit(jax.grad(loss))(*args)
+    entries = list(grad.sharding.spec) + [None] * (grad.ndim - len(grad.sharding.spec))
+    out[case] = [e if e is None or isinstance(e, str) else list(e) for e in entries]
+print(json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def jax_cotangent_specs():
+    """The sharding of x's gradient under ``jax.grad`` through the JAX
+    package's ``shard`` (``with_sharding_constraint``), on 8 host devices."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    got = subprocess.run([sys.executable, "-c", COTANGENT_SCRIPT, json.dumps(COTANGENT_CASES)], check=True,
+                         capture_output=True, text=True, cwd=root, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    return json.loads(got.stdout.strip().splitlines()[-1])
+
+
+def port_cotangent(case: str) -> tuple:
+    """(the placements x's cotangent arrives at ``shard`` with, x's gradient's
+    placements, the annotation's) of the port on a fake 2 x 4 mesh."""
+    with fake_world(8):
+        mesh = S.make_compat_mesh((2, 4), ("data", "model"), device_type="cpu")
+
+        def place(shape, spec):
+            return S.zeros(shape, torch.float32, mesh, S.placements(P(*spec), mesh), "meta")
+
+        x = place((8, 16), COTANGENT_CASES[case]).requires_grad_(True)
+        w1, w2 = place((16, 32), (None, "model")), place((32, 16), ("model", None))
+        arrived = []
+        with S.use_compat_mesh(mesh):
+            y = S.shard(x, "batch", "embed")
+            y.register_hook(lambda g: arrived.append(tuple(g.placements)))
+            ((y @ w1) @ w2).sum().backward()
+            want = logical_sharding(mesh, ("batch", "embed"), DEFAULT_RULES, (8, 16))
+        return arrived[0], tuple(x.grad.placements), want
+
+
+@pytest.mark.parametrize("case", list(COTANGENT_CASES))
+def test_shard_gives_the_cotangent_the_annotations_placements(case):
+    """A cotangent that arrives ``Partial()`` over ``model`` (and whole over
+    ``data``) leaves ``shard`` placed as the annotation says, whether the value was placed so already
+    (the identity forward) or redistributed there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    arrived, grad, want = port_cotangent(case)
+    assert arrived[1] == Partial() and want == (Shard(0), Replicate())
+    assert grad == want
+
+
+@pytest.mark.parametrize("case", list(COTANGENT_CASES))
+def test_the_cotangents_placements_are_jaxs(jax_cotangent_specs, case):
+    """JAX's gradient through ``with_sharding_constraint`` is sharded as the
+    constraint says (its transpose constrains the cotangent), and the port's
+    is placed as that spec."""
+    spec = jax_cotangent_specs[case]
+    assert spec == ["data", None]
+    _, grad, _ = port_cotangent(case)
+    assert grad == S.placements(P(*spec), AbstractMesh((2, 4), ("data", "model")))
+
+
+def test_shard_returns_a_plain_tensor_and_its_gradient_as_they_are():
+    x = torch.ones((8, 16), requires_grad=True)
+    with fake_world(8):
+        mesh = S.make_compat_mesh((2, 4), ("data", "model"), device_type="cpu")
+        with S.use_compat_mesh(mesh):
+            y = S.shard(x, "batch", "embed")
+    assert y is x
+    (3 * y).sum().backward()
+    assert torch.equal(x.grad, torch.full((8, 16), 3.0))
