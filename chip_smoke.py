@@ -138,7 +138,7 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    its plain version on every leaf of the initial state and times it on the
    biggest; one untimed warm-up step (its loss against the same step's loss
    through ``impl="plain"``), then timed steps with their flash-attention
-   launches counted; then a split of one step (forward, backward, optimizer).
+   launches counted.
 15. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
    async writes, ``keep=2``, a checkpoint directory removed at exit) on the
    trace of ``tests/train/test_spot_trainer.py``: one preemption, one restore,
@@ -560,7 +560,8 @@ def acc_profile(sc, device, wall_s) -> dict:
     busy_us, host = 0.0, Counter()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            busy_us += e.duration_ns() * 1e-3
+            if not e.is_user_annotation():  # a range's annotation on the device's timeline is no work
+                busy_us += e.duration_ns() * 1e-3
         else:
             host[e.name()] += 1
     busy_s = busy_us * 1e-6
@@ -853,7 +854,7 @@ def fleet_profile(sc, device, wall_s) -> dict:
     busy_us, spans, marks = 0.0, {"fleet.eet_wave": [], "fleet.attempt_wave": []}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if e.name() not in spans:  # a range's annotation on the device's timeline is no work
+            if not e.is_user_annotation():  # a range's annotation on the device's timeline is no work
                 busy_us += e.duration_ns() * 1e-3
         elif e.name() in spans:
             spans[e.name()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
@@ -1088,7 +1089,7 @@ def serving_profile(sc, device, wall_s) -> dict:
     busy_us, n_device, loop, marks = 0.0, 0, [], {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if e.name() != "serving.period_loop":  # the range's annotation on the device's timeline is no work
+            if not e.is_user_annotation():  # a range's annotation on the device's timeline is no work
                 busy_us += e.duration_ns() * 1e-3
                 n_device += 1
         elif e.name() == "serving.period_loop":
@@ -1995,48 +1996,6 @@ def train_cfg():
     return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
 
 
-def step_split(cfg, opt_cfg, params, opt_state, batch, device) -> dict:
-    """Seconds of one train step's parts, each ended by a synchronize: forward
-    (loss_fn), backward (autograd.grad), AdamW; and one layer's attention alone:
-    the kernel's forward and the plain version's recompute + gradient of the backward."""
-    import torch
-
-    from repro_torch.checkpoint import tree as tree_lib
-    from repro_torch.kernels import _launch
-    from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.flash_attention import ref as flash_ref
-    from repro_torch.models import transformer as T
-    from repro_torch.optim import adamw_update
-
-    leaves, treedef = tree_lib.flatten(params)
-    wrt = [x.detach().requires_grad_(True) for x in leaves]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with FirstCalls({"flash_attention": (flash, None, None)}) as calls:
-        loss, _ = T.loss_fn(cfg, treedef.unflatten(wrt), batch, remat=False, device=device)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    grads = torch.autograd.grad(loss, wrt)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del loss, wrt
-    new = adamw_update(params, treedef.unflatten(list(grads)), opt_state, opt_cfg)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    del new, grads
-    args, kw = calls.inputs["flash_attention"]
-    q, k, v = (a.detach() for a in args)
-    with torch.no_grad():
-        fwd_ms = time_ms(lambda: flash.flash_attention(q, k, v, **kw), reps=5)
-    g = torch.randn_like(q)
-    plain_kw = dict(kw, q_block=1024, kv_block=1024)
-    bwd_ms = time_ms(lambda: _launch.recompute_grads(flash_ref.block_attention, (q, k, v), (True,) * 3, (g,), **plain_kw),
-                     reps=3)
-    return {"forward_s": t1 - t0, "backward_s": t2 - t1, "adamw_s": t3 - t2,
-            "attention_forward_ms_per_layer": fwd_ms, "attention_backward_recompute_ms_per_layer": bwd_ms,
-            "layers": cfg.n_layers}
-
-
 def train_full_width(device) -> tuple[dict, dict]:
     """Phase 9: the full-width train step.  Returns the training numbers and the
     codec's full-width measurement."""
@@ -2093,7 +2052,6 @@ def train_full_width(device) -> tuple[dict, dict]:
     if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
         raise AssertionError(f"full-width training: losses {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    split = step_split(cfg, opt_cfg, params, opt_state, next(data), device)
     step_s = statistics.median(times)
     out = {
         "model": TRAIN_ARCH, "layers": TRAIN_LAYERS, "of_layers": 40, "params_b": n_params / 1e9,
@@ -2101,7 +2059,7 @@ def train_full_width(device) -> tuple[dict, dict]:
         "warmup_step_s": warmup_s, "step_s": times, "step_s_median": step_s,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_memory_gb": peak_gb,
         "flash_attention_launches_per_step": launches[0]["flash_attention"],
-        "first_loss": first_loss, "first_loss_plain": loss_plain, "losses": losses, "split": split,
+        "first_loss": first_loss, "first_loss_plain": loss_plain, "losses": losses,
     }
     print(f"full-width training: {TRAIN_LAYERS} layers, step {step_s:.3f} s, {out['tokens_per_s']:.0f} tokens/s, "
           f"peak {peak_gb:.2f} GB, first loss {first_loss:.4f} (plain {loss_plain:.4f})", flush=True)

@@ -16,6 +16,11 @@ forward, and the plain version only gives the gradient.  A kernel's output is
 a fresh tensor with no ``grad_fn``, so :func:`check_graph` makes ``prepare``
 raise when it is reached outside its Function with inputs that require grad:
 the gradient would stop there without an error.
+
+Every launch of the port passes :func:`call`, and every kernel's backward
+:func:`recompute_grads`: they hold the spans ``kernel.<name>`` and
+``kernel.<name>.recompute`` (:mod:`repro_torch.obs`), so a profiler's trace
+can charge each launch and each recompute to its kernel by name.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 
 PTR, I32, I64, F32, F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
@@ -84,23 +90,25 @@ def check_graph(name: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def recompute_grads(plain: Callable, saved: Sequence[torch.Tensor], needs: Sequence[bool],
+def recompute_grads(name: str, plain: Callable, saved: Sequence[torch.Tensor], needs: Sequence[bool],
                     grad_outputs: Sequence, **kw) -> tuple:
-    """The backward of a kernel's Function: ``plain(*saved, **kw)`` again on
-    detached copies of the saved inputs, with grad mode on, and the gradients
-    of its outputs (weighted by ``grad_outputs``; ``None`` for an output that
-    took no gradient) with respect to the inputs marked in ``needs``.  Returns
-    one gradient or ``None`` per input."""
-    inputs = [t.detach().requires_grad_(bool(n)) for t, n in zip(saved, needs)]
-    with torch.enable_grad():
-        outs = plain(*inputs, **kw)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
-    wrt = [t for t in inputs if t.requires_grad]
-    if not wrt or not pairs:
-        return tuple(None for _ in inputs)
-    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs], allow_unused=True))
-    return tuple(next(got) if t.requires_grad else None for t in inputs)
+    """The backward of kernel ``name``'s Function: ``plain(*saved, **kw)``
+    again on detached copies of the saved inputs, with grad mode on, and the
+    gradients of its outputs (weighted by ``grad_outputs``; ``None`` for an
+    output that took no gradient) with respect to the inputs marked in
+    ``needs``, inside the span ``kernel.<name>.recompute``.  Returns one
+    gradient or ``None`` per input."""
+    with obs.current().span(f"kernel.{name}.recompute"):
+        inputs = [t.detach().requires_grad_(bool(n)) for t, n in zip(saved, needs)]
+        with torch.enable_grad():
+            outs = plain(*inputs, **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+        wrt = [t for t in inputs if t.requires_grad]
+        if not wrt or not pairs:
+            return tuple(None for _ in inputs)
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs], allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in inputs)
 
 
 def require_cuda(name: str, x: torch.Tensor) -> torch.device:
@@ -114,8 +122,10 @@ def stream(device: torch.device) -> int:
 
 
 def call(name: str, job: Launch) -> tuple:
-    """Run a prepared launch; raises when the launch is refused."""
-    err = job.fn(*job.args)
+    """Run a prepared launch inside the span ``kernel.<name>``; raises when
+    the launch is refused."""
+    with obs.current().span(f"kernel.{name}"):
+        err = job.fn(*job.args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
     return job.outs

@@ -86,7 +86,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        grads = recompute_grads(ref.block_attention, ctx.saved_tensors, ctx.needs_input_grad[:3], (grad_out,), **ctx.kw)
+        grads = recompute_grads("flash_attention", ref.block_attention, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                                (grad_out,), **ctx.kw)
         return (*grads, None, None, None, None, None)
 
 

@@ -59,7 +59,8 @@ class RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_h, grad_h_last):
-        return recompute_grads(ref.rglru_scan, ctx.saved_tensors, ctx.needs_input_grad, (grad_h, grad_h_last))
+        return recompute_grads("rglru_scan", ref.rglru_scan, ctx.saved_tensors, ctx.needs_input_grad,
+                               (grad_h, grad_h_last))
 
 
 def prepare(log_a, gated_x) -> Launch:

@@ -58,7 +58,7 @@ class SSMScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y, grad_h_last):
-        return recompute_grads(ref.ssm_scan, ctx.saved_tensors, ctx.needs_input_grad, (grad_y, grad_h_last))
+        return recompute_grads("ssm_scan", ref.ssm_scan, ctx.saved_tensors, ctx.needs_input_grad, (grad_y, grad_h_last))
 
 
 def prepare(dtA, dBx, C) -> Launch:

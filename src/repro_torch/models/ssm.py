@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
@@ -102,7 +103,8 @@ def apply_mamba_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     x_in = shard(x_in, "batch", "seq", "mlp")
     x_conv, _ = causal_conv(x_in, params[f"{name}.conv_w"], params[f"{name}.conv_b"])
     x_act = F.silu(x_conv)
-    dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act)
+    with obs.current().span("prefill.ssm_inputs"):
+        dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act)
     y, h_last = ssm_ops.ssm_scan(dtA, dBx, cmat.contiguous(), impl=impl)
     del dtA, dBx
     y = y + params[f"{name}.D"] * x_act.float()

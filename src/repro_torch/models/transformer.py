@@ -69,6 +69,7 @@ import functools
 import torch
 from torch.utils import checkpoint as activation_checkpoint
 
+from repro_torch import obs
 from repro_torch.data import threefry
 from repro_torch.engine.base import resolve_device
 from repro_torch.kernels import check_impl
@@ -544,7 +545,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *, q_bloc
     check_impl(impl)
     dev = _device(params, device)
     table = params["embed.tokens"]
-    with _mesh_of(params):
+    rows, seq = batch["tokens"].shape
+    with obs.current().span("prefill", rows=rows, ids=rows * seq), _mesh_of(params):
         if SH.is_placed(table):
             batch = place_batch(table.device_mesh, batch)
         return _prefill(cfg, params, batch, max_len, dev, q_block=q_block, kv_block=kv_block, impl=impl)
@@ -602,7 +604,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, device=N
     tokens are placed by ``("batch", None)``."""
     dev = _device(params, device)
     table = params["embed.tokens"]
-    with _mesh_of(params):
+    with obs.current().span("decode.step", pos=cache["len"]), _mesh_of(params):
         if SH.is_placed(table):
             tokens = place_batch(table.device_mesh, {"tokens": tokens})["tokens"]
         return _decode_step(cfg, params, _on(tokens, dev), cache)
@@ -612,25 +614,29 @@ def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
     pos = cache["len"]
     x = L.embed_tokens(cfg, params, tokens, position_offset=pos)
     new_caches = []
+    tel = obs.current()
     for kind, p, lc in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
         if SH.is_placed(x):
             p = _fsdp_gather(p)
         if kind == "mamba":
-            h, nc = S.apply_mamba_decode(cfg, p, "mixer", L.apply_norm(cfg, p, "norm", x), lc)
+            xn = L.apply_norm(cfg, p, "norm", x)
+            with tel.span("decode.mixer"):
+                h, nc = S.apply_mamba_decode(cfg, p, "mixer", xn, lc)
             new_caches.append(nc)
             x = x + h
             continue
-        if kind == "rec":
-            h, nc = R.apply_rglru_decode(cfg, p, "mixer", L.apply_norm(cfg, p, "norm1", x), lc)
-        elif kind == "decoder":
-            h, sc = L.apply_attention_decode(cfg, p, "self_attn", L.apply_norm(cfg, p, "norm1", x), lc["self"])
+        xn = L.apply_norm(cfg, p, "norm1", x)
+        with tel.span("decode.mixer"):
+            if kind == "rec":
+                h, nc = R.apply_rglru_decode(cfg, p, "mixer", xn, lc)
+            elif kind == "decoder":
+                h, sc = L.apply_attention_decode(cfg, p, "self_attn", xn, lc["self"])
+                nc = {"self": sc, "cross_k": lc["cross_k"], "cross_v": lc["cross_v"]}
+            else:
+                h, nc = L.apply_attention_decode(cfg, p, "attn", xn, lc, window=_window(cfg, kind))
+        if kind == "decoder":
             x = x + h
             h = _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), lc["cross_k"], lc["cross_v"])
-            nc = {"self": sc, "cross_k": lc["cross_k"], "cross_v": lc["cross_v"]}
-        else:
-            h, nc = L.apply_attention_decode(
-                cfg, p, "attn", L.apply_norm(cfg, p, "norm1", x), lc, window=_window(cfg, kind)
-            )
         new_caches.append(nc)
         x = _feed_forward(cfg, kind, p, x + h)[0]
     logits = L.unembed(cfg, params, L.apply_norm(cfg, params, "final_norm", x))

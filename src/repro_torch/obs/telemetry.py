@@ -13,6 +13,14 @@ plus either a predicate check (counters) or a shared do-nothing context
 manager (spans): no allocation, no clock read.  The exporters
 (:mod:`repro_torch.obs.exporters`) write a collector as a JSONL log, a Chrome
 trace or a summary table.
+
+While a torch profiler records, every span, the disabled collector's
+included, also opens a ``torch.profiler.record_function`` range named
+``repro_torch.<span name>``: the program's spans then lie on the clock of
+the profiler's device operations.  With no profiler the only cost is one
+read of the profiler's enabled flag.  A span's attributes are host values
+(shapes, Python ints): none may read a device value, which would
+synchronize the host with the device.
 """
 
 from __future__ import annotations
@@ -22,7 +30,17 @@ import threading
 import time
 from typing import Any, Iterator
 
-__all__ = ["NULL", "SimEvent", "Span", "Telemetry", "activate", "current"]
+from torch.autograd import profiler as _profiler
+
+__all__ = ["NULL", "RANGE_PREFIX", "SimEvent", "Span", "Telemetry", "activate", "current", "profiling"]
+
+#: The prefix of the profiler range each span opens while a profiler records.
+RANGE_PREFIX = "repro_torch."
+
+
+def profiling() -> bool:
+    """True while a torch profiler records (PyTorch's own flag for fast checks)."""
+    return _profiler._is_profiler_enabled
 
 
 @dataclasses.dataclass
@@ -77,14 +95,36 @@ class _NullSpanCtx:
 _NULL_SPAN_CTX = _NullSpanCtx()
 
 
+def _range(name: str):
+    return _profiler.record_function(RANGE_PREFIX + name)
+
+
+class _RangeCtx:
+    """The disabled collector's span while a profiler records: its range alone."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _range(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+
 class _SpanCtx:
     """Context manager produced by :meth:`Telemetry.span`."""
 
-    __slots__ = ("_tel", "_span")
+    __slots__ = ("_tel", "_span", "_range")
 
     def __init__(self, tel: "Telemetry", span: Span):
         self._tel = tel
         self._span = span
+        self._range = _range(span.name) if profiling() else None
 
     def __enter__(self) -> Span:
         tel = self._tel
@@ -92,12 +132,16 @@ class _SpanCtx:
         stack = tel._stack
         (stack[-1].children if stack else tel.spans).append(span)
         stack.append(span)
+        if self._range is not None:
+            self._range.__enter__()
         span.t0 = time.perf_counter() - tel.epoch
         return span
 
     def __exit__(self, *exc):
         span = self._tel._stack.pop()
         span.dur = time.perf_counter() - self._tel.epoch - span.t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -189,12 +233,13 @@ class Telemetry:
 
 
 class _NullTelemetry(Telemetry):
-    """The disabled collector: every operation is a no-op."""
+    """The disabled collector: every operation is a no-op, but for a span's
+    profiler range while a profiler records."""
 
     enabled = False
 
-    def span(self, name: str, **attrs):  # shared ctx: no allocation
-        return _NULL_SPAN_CTX
+    def span(self, name: str, **attrs):  # shared ctx: no allocation unless a profiler records
+        return _RangeCtx(name) if profiling() else _NULL_SPAN_CTX
 
     def count(self, name: str, value: float = 1) -> None:
         pass

@@ -8,7 +8,9 @@ in an unrolled loop (the mean of their gradients and metrics), then one AdamW
 update; the metrics add ``grad_norm`` and ``lr``.  Eager PyTorch: each step
 runs the model's ops and kernels as it goes.  Gradients reach every parameter
 through the kernels' autograd Functions (forward: the kernel; backward: the
-recomputed plain version).
+recomputed plain version).  A step is the span ``train.step`` (its
+``tokens``), holding ``train.forward`` and ``train.backward`` for each
+microbatch, then ``train.adamw`` (:mod:`repro_torch.obs`).
 
 On placed parameters (DTensors on a mesh; a plain batch, the same on every
 rank, is placed by ``("batch", "seq")``) the step is the JAX package's step under a mesh: each
@@ -22,10 +24,12 @@ tensors, alike on every rank.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import tree as tree_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -75,6 +79,11 @@ def make_train_step(
                          device=_local_device(params))
 
     def train_step(params, opt_state, batch):
+        with obs.current().span("train.step", tokens=math.prod(batch["tokens"].shape)):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
+        tel = obs.current()
         table = params["embed.tokens"]
         if S.is_placed(table) and not S.is_placed(batch["tokens"]):  # the same whole batch on every rank
             batch = T.place_batch(table.device_mesh, batch)
@@ -83,8 +92,10 @@ def make_train_step(
         mbs = _split_microbatches(batch, microbatches)
         for mb in mbs:  # unrolled accumulation
             wrt = [x.detach().requires_grad_(True) for x in leaves]
-            loss, m = loss_of(treedef.unflatten(wrt), mb)
-            g = torch.autograd.grad(loss, wrt, allow_unused=True)
+            with tel.span("train.forward"):
+                loss, m = loss_of(treedef.unflatten(wrt), mb)
+            with tel.span("train.backward"):
+                g = torch.autograd.grad(loss, wrt, allow_unused=True)
             g = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(wrt, g)]  # JAX: zeros
             g = [as_placed_like(gx, x) for x, gx in zip(wrt, g)]
             m = {k: _whole(v.detach()) for k, v in m.items()}
@@ -99,7 +110,9 @@ def make_train_step(
             grads = [x * inv for x in grads]
             metrics = {k: v * inv for k, v in metrics.items()}
         lr_scale = schedule(opt_state["step"]) if schedule is not None else 1.0
-        params, opt_state, opt_metrics = adamw_update(params, treedef.unflatten(grads), opt_state, opt_cfg, lr_scale)
+        with tel.span("train.adamw"):
+            params, opt_state, opt_metrics = adamw_update(params, treedef.unflatten(grads), opt_state, opt_cfg,
+                                                          lr_scale)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
