@@ -1570,7 +1570,9 @@ def serve(T, cfg, params, batch, impl) -> tuple:
 class FirstCalls:
     """Within the block, records the arguments of each kernel wrapper's first
     ``prepare`` (the full-width inputs of the first layer that calls it), and in
-    ``shapes`` the first call of each other shape or mask."""
+    ``shapes`` the first call of each other shape or mask.  The attention's
+    ``lse`` (whether the forward also writes its log-sum-exp) is an output, not
+    an input of the attention, and is not recorded."""
 
     def __init__(self, mods):
         self.mods = mods
@@ -1583,9 +1585,10 @@ class FirstCalls:
             orig = self._orig[name] = mod.prepare
 
             def wrapped(*args, _name=name, _orig=orig, **kw):
-                self.inputs.setdefault(_name, (args, kw))
-                key = (tuple(tuple(a.shape) for a in args), tuple(sorted(kw.items())))
-                self.shapes.setdefault(_name, {}).setdefault(key, (args, kw))
+                inputs = {k: v for k, v in kw.items() if k != "lse"}
+                self.inputs.setdefault(_name, (args, inputs))
+                key = (tuple(tuple(a.shape) for a in args), tuple(sorted(inputs.items())))
+                self.shapes.setdefault(_name, {}).setdefault(key, (args, inputs))
                 return _orig(*args, **kw)
 
             mod.prepare = wrapped
@@ -1778,6 +1781,114 @@ def serve_models(device) -> dict[str, dict]:
         del params, batch, tokens, plain_tokens
         torch.cuda.empty_cache()
     return found
+
+
+#: The attention's backward kernel at the served shapes: (name, arch, B, S, causal); heads
+#: and head dim from the arch's config (D 256, recurrentgemma-9b's, keeps the plain
+#: recompute).  glm4-9b's is the train step's (the benchmark's train cell).
+BACKWARD_SHAPES = (
+    ("glm4-9b", "glm4-9b", 2, 4096, True),
+    ("internlm2-20b", "internlm2-20b", 2, 4096, True),
+    ("starcoder2-3b", "starcoder2-3b", 2, 4096, True),
+    ("starcoder2-7b", "starcoder2-7b", 2, 4096, True),
+    ("internvl2-1b", "internvl2-1b", 2, 4096, True),
+    ("whisper encoder", "whisper-large-v3", 2, 1500, False),
+    ("arctic-480b", "arctic-480b", 2, 4096, True),
+    ("kimi-k2", "kimi-k2-1t-a32b", 2, 4096, True),
+)
+#: Backward kernel vs the plain recompute (autograd through the float32 block_attention):
+#: max |diff| <= BACKWARD_TOL * max |plain| for each of dq, dk, dv.  bf16's 2e-2, taken
+#: relative to the gradient's scale (as LOGITS_TOL is): the kernel rounds P and dS to bf16
+#: as tensor-core operands, starts from the forward's bf16 output, and rounds its gradients
+#: to bf16; the recompute stays in float32 (measured: within 0.002-0.007 of the scale).
+BACKWARD_TOL = 2e-2
+
+
+def backward_bound(q, k, causal, window, q_offset) -> tuple[float, str]:
+    """Least time for one attention backward: 10 * D tensor-core operations per visible
+    (q, k) pair and head (S = Q K^T again, dP = dO V^T, dV, dK and dQ) at the bf16 rate,
+    or q, k, v, o, dO read and dq, dk, dv written once at HBM bandwidth."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    ops = 10 * D * visible_pairs(Sq, Sk, causal, window, q_offset) * B * H
+    nbytes = q.element_size() * (4 * B * Sq * H * D + 4 * B * Sk * KV * D)
+    ops_ms, bytes_ms = 1e3 * ops / BF16_TENSOR_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sdpa_backward_ms(q, k, v, do, causal) -> float:
+    """The backward of ``scaled_dot_product_attention`` on the same inputs (``enable_gqa``),
+    timed alone as the library's yardstick; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    except TypeError:  # a PyTorch without enable_gqa: expand the kv heads beforehand
+        g = q.shape[2] // k.shape[2]
+        kt, vt = (x.detach().repeat_interleave(g, dim=1).requires_grad_(True) for x in (kt, vt))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), reps=10)
+
+
+def attention_backward_rows(device) -> list[dict]:
+    """Phase 14's first part: the attention's backward kernel at each of
+    ``BACKWARD_SHAPES`` held against the plain recompute within ``BACKWARD_TOL``, run
+    twice to the same bits, then its bare launch timed beside its bound, the recompute
+    and SDPA's backward.  Returns one row a shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    rows = []
+    for name, arch, B, S, causal in BACKWARD_SHAPES:
+        cfg = get_config(arch)
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        gen = torch.Generator(device=device).manual_seed(5)
+        q = torch.randn((B, S, H, D), generator=gen, device=device).bfloat16()
+        k, v = torch.randn((2, B, S, KV, D), generator=gen, device=device).bfloat16()
+        do = torch.randn((B, S, H, D), generator=gen, device=device).bfloat16()
+        kw = dict(causal=causal, window=0, q_offset=0)
+        fwd = flash.prepare(q, k, v, lse=True, **kw)
+        o = flash.launch(fwd)
+        job = flash.backward_prepare(q, k, v, o, fwd.outs[1], do, **kw)
+        before = flash.backward_launches
+        got = flash.backward_launch(job)
+        again = flash.backward_launch(job)
+        want = _launch.recompute_grads("flash_attention", flash_ref.block_attention, (q, k, v), (True,) * 3, (do,),
+                                       q_block=1024, kv_block=1024, **kw)
+        torch.cuda.synchronize()
+        if flash.backward_launches != before + 2 or not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"attention backward {name}: launches or bits differ between two runs")
+        errs = {}
+        for part, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, scale = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+            if not err <= BACKWARD_TOL * scale:  # NaN fails too
+                raise AssertionError(f"attention backward {name} {part}: max |diff| {err} beyond {BACKWARD_TOL} x {scale}")
+            errs[part] = err / scale
+        del got, again, want
+        row = {"name": name, "shape": [B, S, H, KV, D], "causal": causal, "rel_err": errs,
+               "groups": flash.backward_groups(B, KV, H // KV, S),
+               "ms": time_ms(lambda: flash.backward_launch(job), reps=10),
+               "plain_ms": time_ms(lambda: _launch.recompute_grads(
+                   "flash_attention", flash_ref.block_attention, (q, k, v), (True,) * 3, (do,), q_block=1024,
+                   kv_block=1024, **kw), reps=3),
+               "library_ms": sdpa_backward_ms(q, k, v, do, causal)}
+        row["bound_ms"], row["bound_by"] = backward_bound(q, k, causal, 0, 0)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        print(f"attention backward {name} {row['shape']}: kernel within {errs} of the plain recompute's scale, "
+              f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {100 * row['bound_share']:.1f} %; plain "
+              f"{row['plain_ms']:.2f}, SDPA {row['library_ms']:.4f})", flush=True)
+        rows.append(row)
+        del q, k, v, do, o, fwd, job
+        torch.cuda.empty_cache()
+    return rows
 
 
 def model_kernel_rows(found, small_errs) -> list[dict]:
@@ -2035,20 +2146,25 @@ def train_full_width(device) -> tuple[dict, dict]:
     if not abs(first_loss - loss_plain) <= tol + tol * abs(loss_plain):
         raise AssertionError(f"full-width training: first loss {first_loss} vs plain path {loss_plain}")
 
-    times, launches, losses = [], [], []
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    times, launches, losses, backward = [], [], [], []
     for _ in range(TRAIN_STEPS):
         batch = next(data)
         torch.cuda.synchronize()
         reset_launches()
+        before = flash.backward_launches
         t0 = time.perf_counter()
         params, opt_state, metrics = step(params, opt_state, batch)  # the main path
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         launches.append(read_launches())
+        backward.append(flash.backward_launches - before)
         losses.append(float(metrics["loss"]))
     want = {name: (TRAIN_LAYERS if name == "flash_attention" else 0) for name in launches[0]}
-    if any(l != want for l in launches):
-        raise AssertionError(f"full-width training: launches per step {launches}, expected {want}")
+    if any(l != want for l in launches) or any(n != TRAIN_LAYERS for n in backward):
+        raise AssertionError(f"full-width training: launches per step {launches}, backward {backward}, expected "
+                             f"{want} and {TRAIN_LAYERS}")
     if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
         raise AssertionError(f"full-width training: losses {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2059,6 +2175,7 @@ def train_full_width(device) -> tuple[dict, dict]:
         "warmup_step_s": warmup_s, "step_s": times, "step_s_median": step_s,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_memory_gb": peak_gb,
         "flash_attention_launches_per_step": launches[0]["flash_attention"],
+        "flash_attention_backward_launches_per_step": backward[0],
         "first_loss": first_loss, "first_loss_plain": loss_plain, "losses": losses,
     }
     print(f"full-width training: {TRAIN_LAYERS} layers, step {step_s:.3f} s, {out['tokens_per_s']:.0f} tokens/s, "
@@ -3712,7 +3829,8 @@ def main() -> int:
     small_train = small_training_checks(device)
     lap("13")
 
-    # -- 14. training at full width --------------------------------------------
+    # -- 14. the attention's backward kernel, then training at full width ----
+    backward_rows = attention_backward_rows(device)
     training, codec_measured = train_full_width(device)
     lap("14")
 
@@ -3748,10 +3866,19 @@ def main() -> int:
         row["launches_by_path"]["mesh"] = on_mesh
         row["launches_by_path"]["placed_serving"] = on_placed
         row["launches"] += extra + sp + on_mesh + on_placed
+    first = backward_rows[0]
+    backward_row = {
+        "name": "flash_attention_backward", "route": "cuda", "source": MODEL_KERNELS["flash_attention"][0],
+        "replaces": None, "launches": TRAIN_STEPS * training["flash_attention_backward_launches_per_step"],
+        "max_rel_err": max(max(r["rel_err"].values()) for r in backward_rows), "match": True,
+        **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",
+                                       "vs_library")},
+        "model": first["name"], "by_model": {r["name"]: r for r in backward_rows},
+    }
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"] + mesh["launches"]["ckpt_codec"])
     codec["launches_by_path"] = {"campaign": campaign["launches"]["ckpt_codec"], "mesh": mesh["launches"]["ckpt_codec"]}
     print(json.dumps({"phase_s": phase_walls}), flush=True)
-    print(json.dumps({"kernels": [sweep_entry, *rows, codec]}), flush=True)
+    print(json.dumps({"kernels": [sweep_entry, *rows, backward_row, codec]}), flush=True)
 
     # -- 20. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {

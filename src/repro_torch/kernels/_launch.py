@@ -7,17 +7,22 @@ cannot run), allocates the outputs and binds the C function's arguments into a
 ``cudaGetLastError()`` and counts the launch.  A caller timing a kernel puts
 only ``launch`` between its events.
 
-The model kernels have no backward of their own (nor do the TPU kernels they
-replace: the JAX package differentiates through its plain references).  Each
-is wrapped in a ``torch.autograd.Function`` whose forward is the kernel launch
-and whose backward recomputes the plain version on the saved inputs
-(:func:`recompute_grads`).  This is no fallback: the kernel always runs the
-forward, and the plain version only gives the gradient.  A kernel's output is
+The TPU kernels the port replaces have no backward of their own (the JAX
+package differentiates through its plain references).  Each model kernel is
+wrapped in a ``torch.autograd.Function`` whose forward is the kernel launch.
+Flash attention's backward is a kernel of its own where the inputs allow it
+(bfloat16 on the card at the served head dims, see
+:func:`repro_torch.kernels.flash_attention.kernel.backward_path`); every other
+backward, the scans' and the rest of attention's, recomputes the plain version
+on the saved inputs (:func:`recompute_grads`).  This is no fallback: the
+kernel always runs the forward, and the plain version only gives the
+gradient.  A kernel's output is
 a fresh tensor with no ``grad_fn``, so :func:`check_graph` makes ``prepare``
 raise when it is reached outside its Function with inputs that require grad:
 the gradient would stop there without an error.
 
-Every launch of the port passes :func:`call`, and every kernel's backward
+Every launch of the port passes :func:`call` (the attention's backward kernel
+as ``flash_attention_backward``), and every recomputed backward
 :func:`recompute_grads`: they hold the spans ``kernel.<name>`` and
 ``kernel.<name>.recompute`` (:mod:`repro_torch.obs`), so a profiler's trace
 can charge each launch and each recompute to its kernel by name.

@@ -1,4 +1,5 @@
-// Forward flash attention (causal and/or sliding window, GQA) for Hopper (sm_90a).
+// Flash attention (causal and/or sliding window, GQA) for Hopper (sm_90a): the forward, and
+// the backward of bfloat16 at D in {64, 112, 128} (its own note, further down).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_tpu (body
 // _attn_kernel), the Pallas TPU kernel that runs prefill attention in the models
@@ -61,9 +62,13 @@
 // float32 (small checks only): the FMA units, 64 rows and 256 threads a block; its dot
 // products use explicit fmaf, so they are single-rounding FMAs under --fmad=false too.
 //
-// What this design still leaves: FP8, multicast of K / V to a cluster of q tiles, a
-// persistent grid, and an LSE output for a future backward kernel (the backward now
-// recomputes the plain version).
+// LSE: given a pointer (the wrapper passes one only when a gradient is asked for), every body
+// also writes each row's log-sum-exp m + log l of the scaled scores (natural log, float32,
+// (B, H, Sq)) in its epilogue, for the backward kernels at the end of this file; with a null
+// pointer nothing more is written.
+//
+// What this design still leaves: FP8, multicast of K / V to a cluster of q tiles, and a
+// persistent grid.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -88,6 +93,7 @@ struct Args {
   const void* k;  // (B, Sk, KV, D)
   const void* v;  // (B, Sk, KV, D)
   void* o;        // (B, Sq, H, D)
+  float* lse;     // (B, H, Sq) float32, or null: m + log l of each row (natural log, scaled scores)
   long long B, Sq, Sk, H, KV, G, q_tile, window, q_offset;  // q_tile: positions a block
   int causal;
   float scale;
@@ -258,6 +264,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Arg
       const float l = fmaxf(l_s[r], 1e-37f);
       o[((b * a.Sq + q0 + r / a.G) * a.H + kvh * a.G + r % a.G) * D + acc_col] = acc[j] / l;
     }
+  }
+  if (a.lse != nullptr) {  // m is in units of scaled scores here
+    for (int r = tid; r < rows; r += kThreads)
+      a.lse[(b * a.H + kvh * a.G + r % a.G) * a.Sq + q0 + r / a.G] = m_s[r] + logf(fmaxf(l_s[r], 1e-37f));
   }
 }
 
@@ -458,6 +468,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32) flash_attention_mma_kernel(con
   for (int h = 0; h < 2; ++h) {
     const int r = h ? r1 : r0;
     if (r >= rows) continue;
+    if (a.lse != nullptr && t == 0)  // m is in units of scaled scores here
+      a.lse[(b * a.H + kvh * a.G + r % a.G) * a.Sq + q0 + r / a.G] = m[h] + logf(l[h]);
     __nv_bfloat16* out = o + (q_base + (q0 + r / a.G) * a.H + r % a.G) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < kDimTiles; ++j) {
@@ -518,7 +530,10 @@ struct TmaLayout {
 struct TmaArgs {
   int Sq, Sk, KV, G, P, n_qtiles, window, q_offset, causal;  // P: positions a q tile
   float scale_log2;                                           // 1/sqrt(D) * log2(e)
+  float* lse;                                                 // (B, H, Sq), or null
 };
+
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -842,6 +857,11 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       l[h] = fmaxf(l[h], 1e-37f);
+      // m is a raw score here: the natural LSE of the scaled scores is (m scale log2 e + log2 l) ln 2
+      const int r = r0 + 8 * h;
+      if (a.lse != nullptr && t == 0 && r < nq * a.G)
+        a.lse[((long long)b * a.KV * a.G + kvh * a.G + r % a.G) * a.Sq + q0 + r / a.G] =
+            (m[h] * a.scale_log2 + log2f(l[h])) * kLn2;
     }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -880,7 +900,15 @@ int launch_tma(const Args& args, cudaStream_t stream) {
   a.q_offset = (int)args.q_offset;
   a.causal = args.causal;
   a.scale_log2 = args.scale * 1.4426950408889634f;
+  a.lse = args.lse;
   if (a.n_qtiles > 65535 || B * KV > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  // First a runtime call: it makes the device's context current in this thread, which the
+  // CUDA driver's tensor-map encoder needs (a thread that has made no runtime call, such as one
+  // of autograd's, has none).
+  auto kernel = flash_attention_tma_kernel<D, KT, STAGES, DK>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (e != cudaSuccess) return (int)e;
 
   // the rows' real DK columns: a box's columns past DK are filled with zeros on loads and
   // clipped on the O store
@@ -899,9 +927,6 @@ int launch_tma(const Args& args, cudaStream_t stream) {
   if (!err) err = hopper::encode_tiled(&v_map, bf16, 4, args.v, k_dims, k_strides, k_box, sw);
   if (err) return err;
 
-  auto kernel = flash_attention_tma_kernel<D, KT, STAGES, DK>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned int)(B * KV), (unsigned int)a.n_qtiles);
   kernel<<<grid, kTmaThreads, L::bytes, stream>>>(q_map, k_map, v_map, o_map, a);
   return (int)cudaGetLastError();
@@ -945,14 +970,590 @@ int launch_f32(const Args& a, long long D, cudaStream_t stream) {
   }
 }
 
+
+// ---------------------------------------------------------------------------------------
+// Backward, bfloat16, D in {64, 112, 128}: four kernels on the forward's O and LSE
+// ---------------------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX package differentiates its plain reference, and so did
+// this port until the backward below (its plain twin is ref.py::attention_backward).
+//
+// The gradient, per head, with P = exp(S scale - LSE) and S = Q K^T (masked entries 0):
+//   D_i = rowsum(dO o O),  dV = P^T dO,  dS = P o (dO V^T - D),  dK = scale dS^T Q,  dQ = scale dS K.
+// What bounds it on this card: bf16 tensor-core operations, 10 * D per visible (q, k) pair
+// and head (the five products S, dP = dO V^T, dV, dK, dQ) at 989 TFLOP/s: 6.87e11 operations,
+// 0.695 ms, at glm4-9b's train shape (B 2, S 4096, 32 heads on 2, D 128, causal).
+//
+//   * prep (a warp a row): D_i in float32 from the bf16 dO and O, and LSE * log2 e, into a
+//     float32 workspace (B H, 2, Sq rounded up to 64); padded rows get LSE 1e30 (P = 0).
+//   * dK / dV (attention_bwd_dkdv_kernel): a block per (batch, kv head, head group, 128-key
+//     tile); its K and V tiles load once by TMA and stay; a producer warp streams the Q, dO
+//     and (LSE, D) tiles of 64 positions of every head of the group over the queries that see
+//     the keys (the forward's causal and window tests, turned around) through a ring of 3
+//     stages.  Two consumer warpgroups own 64 keys each and keep dK and dV (64 x D float32)
+//     in registers: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared memory),
+//     P^T in float32, dV += P^T dO with P^T rounded to bf16 as the register A operand and dO
+//     as an MN-major B (the forward's P V), dS^T = P^T o (dP^T - D) in float32, dK += dS^T Q
+//     the same way.  dP^T runs on the tensor cores while P^T is formed, dV while dS^T is; a
+//     tile ends with its products done (no wgmma in flight across the loop, as in the forward).
+//   * dQ (attention_bwd_dq_kernel): a second pass over the key tiles, in the forward's own
+//     shape: a block per (batch, kv head, 128 rows = 128 / G positions x G heads), Q and dO
+//     loaded once, K and V tiles of 64 keys through a ring of 3 stages; S = Q K^T and dP = dO
+//     V^T, dS in float32, dQ += dS K with dS in bf16 registers and K as an MN-major B, the
+//     previous tile's dQ product running while this tile's S and dP are formed.  dQ is
+//     summed in float32 registers and stored once by TMA: no atomics, no float32 dQ
+//     workspace, and the same bits on every run.  Chosen over FA2/FA3's float32 atomics into
+//     a workspace because it reuses the forward's tiling and barriers and is deterministic;
+//     it costs the three products S, dP and dQ again (7 * 2 D operations a pair where the
+//     bound counts 10 * D).
+//   * Filling 132 SMs: a block per (batch, kv head, key tile) would be 2 * 2 * 32 = 128
+//     blocks at glm4-9b's train shape, of very unequal causal work.  The dK / dV grid splits
+//     each kv head's G query heads into the fewest groups (a divisor of G) that give at
+//     least three blocks an SM (G 16 -> 4 groups of 4 heads: 512 blocks), and walks key tiles
+//     from the first, which under a causal mask see the most queries, so the light tiles fill
+//     the tail.  Each group's dK / dV goes to a float32 partial; a last kernel sums the
+//     groups in a fixed order and rounds to bf16 (with one group the block rounds and stores
+//     itself).  The dQ grid is the forward's: 2 * 2 * 512 blocks of 128 rows, heaviest first.
+//   * Precision: q, k, v, O and dO are bf16 as the forward saw them; P and dS are rounded to
+//     bf16 only as tensor-core operands (the forward's P V makes the same rounding); every
+//     softmax value, D, LSE and accumulator is float32; scale is applied to dK and dQ in
+//     float32 before their one rounding to bf16.
+//   * Masks: the forward's tests (causal, window, q_offset, Sk), P = 0 where masked; tiles
+//     that every row sees in full skip the test.  A row that sees no key at all has no
+//     gradient here: the wrapper sends such calls (a window with q_offset past the keys' end)
+//     to the plain recompute.  D = 112 runs the D = 128 layout, as the forward does.
+
+constexpr int kBwdKeys = 128;    // keys of a dK / dV block: two consumer warpgroups x 64
+constexpr int kBwdQueries = 64;  // query positions of its q tiles
+constexpr int kBwdStages = 3;    // q tiles in flight
+constexpr int kDqKeys = 64;      // keys of a dQ block's kv tiles
+constexpr int kDqStages = 3;     // kv tiles in flight
+constexpr float kLsePad = 1e30f;  // log2-domain LSE of the padded query rows: P = 0 there
+
+struct BwdArgs {
+  int B, Sq, Sk, H, KV, G, Sq_pad, window, q_offset, causal;
+  int n_groups, heads;        // groups of a kv head's query heads in the dK / dV grid, heads a group
+  int n_ktiles;               // key tiles of the dK / dV grid
+  int P, n_qtiles;            // positions a tile and q tiles of the dQ grid
+  float scale, scale_log2;
+  const __nv_bfloat16* o;     // (B, Sq, H, DK)
+  const __nv_bfloat16* dout;  // (B, Sq, H, DK)
+  const float* lse;           // (B, H, Sq), natural log
+  float* stats;               // (B H, 2, Sq_pad): LSE log2 e, then D
+  float* part;                // (2, n_groups, B, Sk, KV, DK) float32 when n_groups > 1
+  __nv_bfloat16* dk;          // (B, Sk, KV, DK)
+  __nv_bfloat16* dv;
+};
+
+// D_i and LSE log2 e of every row, a warp a row, rows in (b, h, q) order.
+template <int DK>
+__global__ void __launch_bounds__(256) attention_bwd_prep_kernel(const BwdArgs a) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)a.B * a.H * a.Sq_pad) return;
+  const int q = (int)(row % a.Sq_pad);
+  const long long bh = row / a.Sq_pad;
+  const long long b = bh / a.H, h = bh % a.H;
+  float* st = a.stats + bh * 2 * a.Sq_pad;
+  if (q >= a.Sq) {
+    if (lane == 0) {
+      st[q] = kLsePad;
+      st[a.Sq_pad + q] = 0.f;
+    }
+    return;
+  }
+  const long long off = ((b * a.Sq + q) * a.H + h) * DK;
+  float sum = 0.f;
+  for (int d = 2 * lane; d < DK; d += 64) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.dout + off + d));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.o + off + d));
+    sum = fmaf(x.x, y.x, sum);
+    sum = fmaf(x.y, y.y, sum);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (lane == 0) {
+    st[q] = a.lse[bh * a.Sq + q] * 1.4426950408889634f;
+    st[a.Sq_pad + q] = sum;
+  }
+}
+
+// Shared memory of a dK / dV block: K and V (D / 64 column chunks of [128][64] bf16), then
+// per stage a Q and a dO tile ([64][64] chunks) and the tile's [2][64] floats of LSE and D.
+template <int D>
+struct DkdvLayout {
+  static constexpr int kv_bytes = kBwdKeys * D * 2;
+  static constexpr int q_bytes = kBwdQueries * D * 2;
+  static constexpr int st_bytes = 2 * kBwdQueries * 4;
+  static constexpr int k_off = 0;
+  static constexpr int v_off = kv_bytes;
+  static constexpr int q_off = 2 * kv_bytes;
+  static constexpr int do_off = q_off + kBwdStages * q_bytes;
+  static constexpr int st_off = do_off + kBwdStages * q_bytes;
+  static constexpr int bar_off = st_off + kBwdStages * st_bytes;
+  static constexpr int n_bars = 1 + 2 * kBwdStages;  // K / V full; per stage full and empty
+  static constexpr int bytes = bar_off + 8 * n_bars + 1024;
+};
+
+template <int D, int DK>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                              const __grid_constant__ CUtensorMap st_map, const BwdArgs a) {
+  using L = DkdvLayout<D>;
+  constexpr int kChunks = D / 64;
+  constexpr int NQ = kBwdQueries;
+  static_assert(D % 64 == 0 && DK % 16 == 0 && DK <= D && DK > D - 64, "head dim");
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem + L::k_off;
+  uint8_t* vs = smem + L::v_off;
+  uint8_t* qs = smem + L::q_off;
+  uint8_t* dos = smem + L::do_off;
+  float* sts = reinterpret_cast<float*>(smem + L::st_off);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kBwdStages;
+
+  const int grp = (int)blockIdx.x % a.n_groups;
+  const int kvh = ((int)blockIdx.x / a.n_groups) % a.KV;
+  const int b = (int)blockIdx.x / (a.n_groups * a.KV);
+  const int k0 = (int)blockIdx.y * kBwdKeys;  // key tiles from the first: the most queries under a causal mask
+  const int k_last = min(k0 + kBwdKeys, a.Sk) - 1;
+  // the query rows that see some key of the tile
+  int q_begin = 0, q_end = a.Sq;
+  if (a.causal) q_begin = max(0, k0 - a.q_offset);
+  if (a.window) q_end = min(q_end, k_last + a.window - a.q_offset);
+  const int qt_first = q_begin / NQ;
+  const int n_qt = q_end > q_begin ? (q_end - 1) / NQ - qt_first + 1 : 0;
+  const int n_iter = n_qt * a.heads;
+  const int h_first = kvh * a.G + grp * a.heads;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * L::kv_bytes);
+      for (int c = 0; c < kChunks; ++c) {
+        hopper::tma_load_4d(ks + c * kBwdKeys * kSwizzleRow, &k_map, kv_full, c * 64, kvh, k0, b);
+        hopper::tma_load_4d(vs + c * kBwdKeys * kSwizzleRow, &v_map, kv_full, c * 64, kvh, k0, b);
+      }
+      for (int i = 0; i < n_iter; ++i) {
+        const int s = i % kBwdStages;
+        const int h = h_first + i / n_qt, q0 = (qt_first + i % n_qt) * NQ;
+        hopper::mbar_wait(empty + s, ((i / kBwdStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full + s, 2 * L::q_bytes + L::st_bytes);
+        for (int c = 0; c < kChunks; ++c) {
+          hopper::tma_load_4d(qs + s * L::q_bytes + c * NQ * kSwizzleRow, &q_map, full + s, c * 64, h, q0, b);
+          hopper::tma_load_4d(dos + s * L::q_bytes + c * NQ * kSwizzleRow, &do_map, full + s, c * 64, h, q0, b);
+        }
+        hopper::tma_load_3d(sts + s * 2 * NQ, &st_map, full + s, q0, 0, b * a.H + h);
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    hopper::setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kc0 = k0 + cw * 64;            // this warpgroup's first key
+    const int kp0 = kc0 + warp * 16 + g;     // this thread's keys: kp0 and kp0 + 8
+    const uint32_t k_addr = hopper::smem_u32(ks) + cw * 64 * kSwizzleRow;
+    const uint32_t v_addr = hopper::smem_u32(vs) + cw * 64 * kSwizzleRow;
+    const uint32_t q_base = hopper::smem_u32(qs), do_base = hopper::smem_u32(dos);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    uint32_t pp[NQ / 4], dsp[NQ / 4];
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % kBwdStages;
+      const int q0 = (qt_first + i % n_qt) * NQ;
+      const uint32_t q_addr = q_base + st * L::q_bytes, do_addr = do_base + st * L::q_bytes;
+      const float* lse2 = sts + st * 2 * NQ;
+      const float* dd = lse2 + NQ;
+      float s[NQ / 2], dp[NQ / 2];
+      hopper::mbar_wait(full + st, (i / kBwdStages) & 1);
+      issue_qk<DK, NQ>(s, k_addr, q_addr);    // S^T = K Q^T
+      issue_qk<DK, NQ>(dp, v_addr, do_addr);  // dP^T = V dO^T
+      wgmma_wait<1>();                        // S^T done
+      fence_regs(s);
+
+      // P^T = exp2(S^T scale log2 e - LSE log2 e), 0 where masked
+      const bool full_tile = kc0 + 64 <= a.Sk && (!a.causal || kc0 + 63 <= q0 + a.q_offset) &&
+                             (!a.window || kc0 > q0 + NQ - 1 + a.q_offset - a.window);
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        const float2 lj = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          float x = ex2(fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? lj.y : lj.x)));
+          if (!full_tile) {
+            const int kp = kp0 + (e >> 1) * 8, qp = q0 + col + a.q_offset;
+            bool visible = kp < a.Sk;
+            if (a.causal) visible = visible && kp <= qp;
+            if (a.window) visible = visible && kp > qp - a.window;
+            if (!visible) x = 0.f;
+          }
+          s[4 * j + e] = x;
+        }
+      }
+      pack_p<NQ>(pp, s);
+      issue_pv<D, NQ>(dv, pp, do_addr);  // dV += P^T dO
+      wgmma_wait<1>();                   // dP^T done
+      fence_regs(dp);
+      // dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        const float2 dj = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dj.y : dj.x));
+      }
+      pack_p<NQ>(dsp, dp);
+      issue_pv<D, NQ>(dk, dsp, q_addr);  // dK += dS^T Q
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pp);
+      fence_regs(dsp);
+      if (lane == 0) hopper::mbar_arrive(empty + st);
+    }
+
+    // this thread's keys kp0 and kp0 + 8, columns 8 j + 2 t (+1)
+    const long long n = (long long)a.B * a.Sk * a.KV * DK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kp = kp0 + 8 * h;
+      if (kp >= a.Sk) continue;
+      const long long row = (((long long)b * a.Sk + kp) * a.KV + kvh) * DK;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col >= DK) continue;
+        const float2 xk = make_float2(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+        const float2 xv = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+        if (a.n_groups == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(a.dk + row + col) = __floats2bfloat162_rn(xk.x, xk.y);
+          *reinterpret_cast<__nv_bfloat162*>(a.dv + row + col) = __floats2bfloat162_rn(xv.x, xv.y);
+        } else {
+          *reinterpret_cast<float2*>(a.part + grp * n + row + col) = xk;
+          *reinterpret_cast<float2*>(a.part + (a.n_groups + grp) * n + row + col) = xv;
+        }
+      }
+    }
+  }
+}
+
+// dK and dV from the groups' float32 partials: summed in group order, rounded to bf16; four
+// elements a thread, blockIdx.y 0 for dK and 1 for dV.
+__global__ void __launch_bounds__(256) attention_bwd_sum_kernel(const BwdArgs a, long long n) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float* src = a.part + blockIdx.y * a.n_groups * n + i;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < a.n_groups; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + g * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat16* dst = (blockIdx.y ? a.dv : a.dk) + i;
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
+// Shared memory of a dQ block: Q (then dQ) and dO ([128][64] chunks), then per stage a K
+// and a V tile ([64][64] chunks).
+template <int D>
+struct DqLayout {
+  static constexpr int q_bytes = kTmaRows * D * 2;
+  static constexpr int kv_bytes = kDqKeys * D * 2;
+  static constexpr int q_off = 0;
+  static constexpr int do_off = q_bytes;
+  static constexpr int k_off = 2 * q_bytes;
+  static constexpr int v_off = k_off + kDqStages * kv_bytes;
+  static constexpr int bar_off = v_off + kDqStages * kv_bytes;
+  static constexpr int n_bars = 1 + 4 * kDqStages;  // Q and dO full; K / V full and empty per stage
+  static constexpr int bytes = bar_off + 8 * n_bars + 1024;
+};
+
+template <int D, int DK>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                            const __grid_constant__ CUtensorMap dq_map, const BwdArgs a) {
+  using L = DqLayout<D>;
+  constexpr int kChunks = D / 64;
+  constexpr int KT = kDqKeys;
+  static_assert(D % 64 == 0 && DK % 16 == 0 && DK <= D && DK > D - 64, "head dim");
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem + L::q_off;  // Q, then dQ
+  uint8_t* dos = smem + L::do_off;
+  uint8_t* ks = smem + L::k_off;
+  uint8_t* vs = smem + L::v_off;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kDqStages;
+  uint64_t* k_empty = v_full + kDqStages;
+  uint64_t* v_empty = k_empty + kDqStages;
+
+  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
+  const int qt = a.causal ? a.n_qtiles - 1 - (int)blockIdx.y : (int)blockIdx.y;  // heaviest first
+  const int q0 = qt * a.P;
+  const int nq = min(a.P, a.Sq - q0);
+  const int q_lo = q0 + a.q_offset, q_hi = q0 + nq - 1 + a.q_offset;
+  int k_begin = 0, k_end = a.Sk;
+  if (a.causal) k_end = min(k_end, q_hi + 1);
+  if (a.window) k_begin = max(k_begin, q_lo - a.window + 1);
+  const int t_first = k_begin / KT;
+  const int n_tiles = max(0, (k_end + KT - 1) / KT - t_first);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(k_empty + s, 8);
+      hopper::mbar_init(v_empty + s, 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_full, 2 * kChunks * a.G * a.P * kSwizzleRow);
+      for (int c = 0; c < kChunks; ++c) {
+        hopper::tma_load_4d(qs + c * kTmaRows * kSwizzleRow, &q_map, q_full, c * 64, kvh * a.G, q0, b);
+        hopper::tma_load_4d(dos + c * kTmaRows * kSwizzleRow, &do_map, q_full, c * 64, kvh * a.G, q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kDqStages;
+        const uint32_t ph = (i / kDqStages) & 1;
+        const int k0 = (t_first + i) * KT;
+        hopper::mbar_wait(k_empty + s, ph ^ 1);
+        hopper::mbar_expect_tx(k_full + s, L::kv_bytes);
+        for (int c = 0; c < kChunks; ++c)
+          hopper::tma_load_4d(ks + s * L::kv_bytes + c * KT * kSwizzleRow, &k_map, k_full + s, c * 64, kvh, k0, b);
+        hopper::mbar_wait(v_empty + s, ph ^ 1);
+        hopper::mbar_expect_tx(v_full + s, L::kv_bytes);
+        for (int c = 0; c < kChunks; ++c)
+          hopper::tma_load_4d(vs + s * L::kv_bytes + c * KT * kSwizzleRow, &v_map, v_full + s, c * 64, kvh, k0, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = cw * 64 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const int qp0 = q0 + r0 / a.G + a.q_offset, qp1 = q0 + (r0 + 8) / a.G + a.q_offset;
+    float lse2[2], dd[2];  // the rows' LSE log2 e and D (padding rows: P = 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      lse2[h] = kLsePad;
+      dd[h] = 0.f;
+      if (r < nq * a.G) {
+        const float* st = a.stats + ((long long)b * a.H + kvh * a.G + r % a.G) * 2 * a.Sq_pad + q0 + r / a.G;
+        lse2[h] = st[0];
+        dd[h] = st[a.Sq_pad];
+      }
+    }
+    const uint32_t q_addr = hopper::smem_u32(qs) + cw * 64 * kSwizzleRow;
+    const uint32_t do_addr = hopper::smem_u32(dos) + cw * 64 * kSwizzleRow;
+    const uint32_t k_addr = hopper::smem_u32(ks), v_addr = hopper::smem_u32(vs);
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    uint32_t dsp[KT / 4];
+
+    // P = exp2(S scale log2 e - LSE log2 e) of the tile at k0, 0 where masked
+    const auto probs = [&](float(&p)[KT / 2], int k0) {
+      const bool full_tile =
+          k0 + KT <= a.Sk && (!a.causal || k0 + KT - 1 <= q_lo) && (!a.window || k0 > q_hi - a.window);
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = ex2(fmaf(p[4 * j + e], a.scale_log2, -lse2[e >> 1]));
+          if (!full_tile) {
+            const int kp = k0 + 8 * j + 2 * t + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            bool visible = kp < a.Sk;
+            if (a.causal) visible = visible && kp <= qp;
+            if (a.window) visible = visible && kp > qp - a.window;
+            if (!visible) x = 0.f;
+          }
+          p[4 * j + e] = x;
+        }
+      }
+    };
+    // dS = P (dP - D), in dP's registers
+    const auto dscores = [&](float(&dp)[KT / 2], const float(&p)[KT / 2]) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - dd[e >> 1]);
+      }
+    };
+
+    hopper::mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      {
+        float s[KT / 2], dp[KT / 2];
+        hopper::mbar_wait(k_full, 0);
+        issue_qk<DK, KT>(s, q_addr, k_addr);  // S = Q K^T
+        hopper::mbar_wait(v_full, 0);
+        issue_qk<DK, KT>(dp, do_addr, v_addr);  // dP = dO V^T
+        wgmma_wait<1>();
+        fence_regs(s);
+        probs(s, t_first * KT);
+        wgmma_wait<0>();
+        fence_regs(dp);
+        if (lane == 0) hopper::mbar_arrive(v_empty);
+        dscores(dp, s);
+        pack_p<KT>(dsp, dp);
+      }
+      for (int i = 1; i < n_tiles; ++i) {
+        const int st = i % kDqStages, sp = (i - 1) % kDqStages;
+        const uint32_t ph = (i / kDqStages) & 1;
+        float s[KT / 2], dp[KT / 2];
+        hopper::mbar_wait(k_full + st, ph);
+        issue_qk<DK, KT>(s, q_addr, k_addr + st * L::kv_bytes);
+        hopper::mbar_wait(v_full + st, ph);
+        issue_qk<DK, KT>(dp, do_addr, v_addr + st * L::kv_bytes);
+        issue_pv<D, KT>(dq, dsp, k_addr + sp * L::kv_bytes);  // dQ += dS K of the previous tile
+        wgmma_wait<2>();                                       // S done
+        fence_regs(s);
+        probs(s, (t_first + i) * KT);
+        wgmma_wait<1>();  // dP done
+        fence_regs(dp);
+        if (lane == 0) hopper::mbar_arrive(v_empty + st);
+        dscores(dp, s);
+        wgmma_wait<0>();  // the previous tile's dQ product
+        fence_regs(dq);
+        fence_regs(dsp);
+        if (lane == 0) hopper::mbar_arrive(k_empty + sp);
+        pack_p<KT>(dsp, dp);
+      }
+      const int sl = (n_tiles - 1) % kDqStages;
+      issue_pv<D, KT>(dq, dsp, k_addr + sl * L::kv_bytes);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsp);
+    }
+
+    // dQ scale in bf16 over this warpgroup's Q rows, in the swizzled layout the TMA store reads
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        uint8_t* dst = qs + (j / 8) * kTmaRows * kSwizzleRow + r * kSwizzleRow + (((j % 8) ^ g) * 16) + t * 4;
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * h] * a.scale, dq[4 * j + 2 * h + 1] * a.scale);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int c = 0; c < kChunks; ++c)
+        hopper::tma_store_4d(&dq_map, qs + c * kTmaRows * kSwizzleRow, c * 64, kvh * a.G, q0, b);
+      hopper::bulk_commit();
+      hopper::bulk_wait_all();
+    }
+  }
+}
+
+template <int D, int DK>
+int launch_backward(BwdArgs a, const void* q, const void* k, const void* v, void* dq, cudaStream_t stream) {
+  // runtime calls first: they make the context current for the tensor-map encoder (launch_tma)
+  auto dkdv = attention_bwd_dkdv_kernel<D, DK>;
+  auto dqk = attention_bwd_dq_kernel<D, DK>;
+  cudaError_t e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, DkdvLayout<D>::bytes);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, DqLayout<D>::bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long B = a.B, Sq = a.Sq, Sk = a.Sk, H = a.H, KV = a.KV;
+  const cuuint64_t q_dims[4] = {(cuuint64_t)DK, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t q_strides[3] = {(cuuint64_t)DK * 2, (cuuint64_t)(H * DK * 2), (cuuint64_t)(Sq * H * DK * 2)};
+  const cuuint64_t k_dims[4] = {(cuuint64_t)DK, (cuuint64_t)KV, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t k_strides[3] = {(cuuint64_t)DK * 2, (cuuint64_t)(KV * DK * 2), (cuuint64_t)(Sk * KV * DK * 2)};
+  const cuuint64_t st_dims[3] = {(cuuint64_t)a.Sq_pad, 2, (cuuint64_t)(B * H)};
+  const cuuint64_t st_strides[2] = {(cuuint64_t)a.Sq_pad * 4, (cuuint64_t)a.Sq_pad * 8};
+  const cuuint32_t head_box[4] = {64, 1, (cuuint32_t)kBwdQueries, 1};  // one head's 64 positions
+  const cuuint32_t group_box[4] = {64, (cuuint32_t)a.G, (cuuint32_t)a.P, 1};  // the forward's q tile
+  const cuuint32_t key_box[4] = {64, 1, (cuuint32_t)kBwdKeys, 1};
+  const cuuint32_t dq_key_box[4] = {64, 1, (cuuint32_t)kDqKeys, 1};
+  const cuuint32_t st_box[3] = {(cuuint32_t)kBwdQueries, 2, 1};
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap q1, do1, k1, v1, st, qg, dog, dqg, k2, v2;
+  int err = hopper::encode_tiled(&q1, bf16, 4, q, q_dims, q_strides, head_box, sw);
+  if (!err) err = hopper::encode_tiled(&do1, bf16, 4, a.dout, q_dims, q_strides, head_box, sw);
+  if (!err) err = hopper::encode_tiled(&k1, bf16, 4, k, k_dims, k_strides, key_box, sw);
+  if (!err) err = hopper::encode_tiled(&v1, bf16, 4, v, k_dims, k_strides, key_box, sw);
+  if (!err)
+    err = hopper::encode_tiled(&st, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.stats, st_dims, st_strides, st_box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!err) err = hopper::encode_tiled(&qg, bf16, 4, q, q_dims, q_strides, group_box, sw);
+  if (!err) err = hopper::encode_tiled(&dog, bf16, 4, a.dout, q_dims, q_strides, group_box, sw);
+  if (!err) err = hopper::encode_tiled(&dqg, bf16, 4, dq, q_dims, q_strides, group_box, sw);
+  if (!err) err = hopper::encode_tiled(&k2, bf16, 4, k, k_dims, k_strides, dq_key_box, sw);
+  if (!err) err = hopper::encode_tiled(&v2, bf16, 4, v, k_dims, k_strides, dq_key_box, sw);
+  if (err) return err;
+
+  const long long rows = B * H * a.Sq_pad;
+  attention_bwd_prep_kernel<DK><<<(unsigned int)((rows + 7) / 8), 256, 0, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  dkdv<<<dim3((unsigned int)(B * KV * a.n_groups), (unsigned int)a.n_ktiles), kTmaThreads, DkdvLayout<D>::bytes,
+         stream>>>(q1, k1, v1, do1, st, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (a.n_groups > 1) {
+    const long long n = B * Sk * KV * DK;
+    attention_bwd_sum_kernel<<<dim3((unsigned int)((n / 4 + 255) / 256), 2), 256, 0, stream>>>(a, n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+
+  dqk<<<dim3((unsigned int)(B * KV), (unsigned int)a.n_qtiles), kTmaThreads, DqLayout<D>::bytes, stream>>>(
+      qg, k2, v2, dog, dqg, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the attention on `stream` and returns cudaGetLastError() (0 on success).
 // q, k, v, o are contiguous device pointers of the shapes above; dtype 0 is float32, 1 is
-// bfloat16 (o has q's dtype).  The caller checks shapes, dtypes, D in {16, 32, 64, 112, 128, 256},
+// bfloat16 (o has q's dtype).  lse, when not null, receives each row's log-sum-exp (B, H, Sq)
+// in float32 for the backward kernel; with null nothing more is written.  The caller checks shapes, dtypes, D in {16, 32, 64, 112, 128, 256},
 // 1 <= G = H / KV <= 64, that q, k, v, o start on 16-byte boundaries (TMA's alignment) and
 // that the positions fit in 32-bit TMA coordinates.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, long long B,
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, float* lse, long long B,
                                       long long Sq, long long Sk, long long H, long long KV, long long D,
                                       long long causal, long long window, long long q_offset, long long dtype,
                                       float scale, void* stream) {
@@ -962,6 +1563,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -976,4 +1578,54 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 0) return launch_f32(a, D, s);
   if (dtype == 1) return launch_bf16(a, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches the backward on `stream` (prep, dK / dV, the groups' sum when n_groups > 1, dQ) and
+// returns cudaGetLastError() (0 on success).  bfloat16 q, k, v, o, dout, dq, dk, dv of the
+// forward's shapes; lse (B, H, Sq) float32 as the forward wrote it; stats a float32
+// workspace of (B H, 2, Sq rounded up to 64); part a float32 workspace of (2, n_groups, B,
+// Sk, KV, D) when n_groups > 1 (else unused).  The caller checks what flash_attention_launch's
+// caller checks, D in {64, 112, 128}, that n_groups divides G, and that every query row sees
+// a key.
+extern "C" int flash_attention_backward_launch(const void* q, const void* k, const void* v, const void* o,
+                                               const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                                               float* stats, float* part, long long B, long long Sq, long long Sk,
+                                               long long H, long long KV, long long D, long long causal,
+                                               long long window, long long q_offset, long long n_groups, float scale,
+                                               void* stream) {
+  if (KV <= 0 || H % KV != 0 || H / KV > kMaxGroup || B <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
+  if (n_groups < 1 || (H / KV) % n_groups != 0 || (n_groups > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.B = (int)B;
+  a.Sq = (int)Sq;
+  a.Sk = (int)Sk;
+  a.H = (int)H;
+  a.KV = (int)KV;
+  a.G = (int)(H / KV);
+  a.Sq_pad = (int)((Sq + kBwdQueries - 1) / kBwdQueries * kBwdQueries);
+  a.window = (int)window;
+  a.q_offset = (int)q_offset;
+  a.causal = causal ? 1 : 0;
+  a.n_groups = (int)n_groups;
+  a.heads = a.G / a.n_groups;
+  a.n_ktiles = (int)((Sk + kBwdKeys - 1) / kBwdKeys);
+  a.P = kTmaRows / a.G;
+  a.n_qtiles = (int)((Sq + a.P - 1) / a.P);
+  a.scale = scale;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  a.o = static_cast<const __nv_bfloat16*>(o);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.lse = lse;
+  a.stats = stats;
+  a.part = part;
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  if (a.n_qtiles > 65535 || a.n_ktiles > 65535 || B * KV * n_groups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_backward<64, 64>(a, q, k, v, dq, s);
+    case kHeadDim112: return launch_backward<128, kHeadDim112>(a, q, k, v, dq, s);
+    case 128: return launch_backward<128, 128>(a, q, k, v, dq, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

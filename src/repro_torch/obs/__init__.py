@@ -32,7 +32,8 @@ The model paths record, from the entry points down to the kernels:
 ``decode.step`` (``pos``)              ``models/transformer.py::decode_step``
 ``decode.mixer``                       a layer's mixer in a decode step
 ``kernel.<name>``                      a kernel launch (``kernels/_launch.py::call``)
-``kernel.<name>.recompute``            a kernel's backward (``recompute_grads``)
+``kernel.flash_attention_backward``    the attention's backward kernel (its four launches)
+``kernel.<name>.recompute``            a kernel's plain backward (``recompute_grads``)
 =====================================  ===============================================
 
 While ``torch.profiler`` records, every span is also a ``record_function``

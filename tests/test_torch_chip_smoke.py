@@ -52,6 +52,34 @@ def test_bounds_at_the_served_shapes(smoke):
     assert ssm[1] == "bytes" and ssm[0] == pytest.approx(2.6447, rel=1e-3)
 
 
+def test_backward_bound_and_shapes(smoke):
+    """The backward's bound at glm4-9b's train shape (10 * D operations a visible pair and
+    head: 0.695 ms), and every shape the smoke run holds takes the backward kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    meta = {"device": "meta", "dtype": torch.bfloat16}
+    ms, by = smoke.backward_bound(torch.empty((2, 4096, 32, 128), **meta), torch.empty((2, 4096, 2, 128), **meta),
+                                  True, 0, 0)
+    assert by == "operations" and ms == pytest.approx(10 * 128 * 4096 * 4097 / 2 * 2 * 32 / 989e9)  # ~0.695 ms
+    assert smoke.BACKWARD_SHAPES[0][1] == smoke.TRAIN_ARCH
+    for _, arch, _, seq, _ in smoke.BACKWARD_SHAPES:
+        cfg = get_config(arch)
+        assert flash.backward_path("cuda", torch.bfloat16, cfg.d_head, sq=seq, sk=seq) == "kernel"
+
+
+def test_first_calls_record_the_attentions_inputs_without_its_lse(smoke):
+    """The recorded keywords are replayed into the plain version, which takes no ``lse``."""
+    import types
+
+    mod = types.SimpleNamespace(prepare=lambda *args, **kw: kw)
+    q = torch.zeros((1, 8, 2, 16))
+    with smoke.FirstCalls({"flash_attention": (mod, None, None)}) as calls:
+        assert mod.prepare(q, q, q, causal=True, window=0, q_offset=0, lse=False)["lse"] is False
+    assert calls.inputs["flash_attention"][1] == {"causal": True, "window": 0, "q_offset": 0}
+    assert list(calls.shapes["flash_attention"].values())[0][1] == {"causal": True, "window": 0, "q_offset": 0}
+
+
 def test_small_cases_cover_what_the_kernels_take(smoke):
     from repro_torch.kernels.flash_attention import kernel as flash
 

@@ -10,7 +10,9 @@ are held to their plain versions within the JAX tests' tolerances, and the
 smoke-size models to their plain path.  The checkpoint codec must equal its
 plain version bit for bit (q and scales; NaN scales where the plain version's
 are NaN), and gradients through the model kernels' autograd Functions must
-equal the plain path's (their backward recomputes the plain version).  Run
+equal the plain path's where their backward recomputes the plain version
+(float32); the attention's backward kernel (bf16) is held to
+``ref.attention_backward`` within ``BACKWARD_TOL`` and to its own bits.  Run
 them on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -314,6 +316,100 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
     close(got, want, ATTN_TOL[dtype])
 
 
+#: Backward kernel vs the plain version (``ref.attention_backward`` in float32 from the plain
+#: forward's float32 O and LSE): max |diff| <= BACKWARD_TOL * max |plain| for each of dq, dk
+#: and dv.  bf16's 2e-2 (ATTN_TOL's), taken relative to the gradient's scale: the kernel rounds
+#: P and dS to bf16 as tensor-core operands (the forward's P V makes the same rounding), starts
+#: from the forward's bf16 O, and rounds its gradients to bf16.  The forward's LSE: 1e-4
+#: absolute (ex2.approx and sums in another order, on values of order 10).
+BACKWARD_TOL, LSE_TOL = 2e-2, 1e-4
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        # (B, Sq, Sk, KV, G, D, causal, window, q_offset)
+        (2, 4096, 4096, 2, 16, 128, True, 0, 0),  # glm4-9b's train shape
+        (1, 2048, 2048, 8, 6, 128, True, 0, 0),  # internlm2-20b: G 6
+        (2, 1024, 1024, 2, 7, 64, True, 0, 0),  # internvl2-1b: D 64, G 7
+        (1, 1500, 1500, 20, 1, 64, False, 0, 0),  # whisper's bidirectional encoder
+        (1, 1024, 1024, 8, 8, 112, True, 0, 0),  # kimi-k2: D 112
+        (1, 200, 455, 2, 8, 128, True, 100, 255),  # a window with q_offset, Sk > Sq
+        (1, 1000, 1000, 2, 6, 128, True, 0, 0),  # ragged Sq = 1000
+        (1, 1000, 1200, 1, 4, 64, False, 300, 150),  # bidirectional window with q_offset, ragged
+    ],
+)
+def test_flash_attention_backward_matches_plain_version(cuda, case):
+    B, Sq, Sk, KV, G, D, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((B, Sq, KV * G, D), generator=gen, device=cuda).bfloat16()
+    k, v = torch.randn((2, B, Sk, KV, D), generator=gen, device=cuda).bfloat16()
+    do = torch.randn((B, Sq, KV * G, D), generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    job = flash.prepare(q, k, v, lse=True, **kw)
+    o = flash.launch(job)
+    before = flash.backward_launches
+    got = flash.backward_launch(flash.backward_prepare(q, k, v, o, job.outs[1], do, **kw))
+    again = flash.backward_launch(flash.backward_prepare(q, k, v, o, job.outs[1], do, **kw))
+    o_ref, lse_ref = flash_ref.block_attention(q.float(), k.float(), v.float(), return_lse=True, **kw)
+    want = flash_ref.attention_backward(q.float(), k.float(), v.float(), o_ref, lse_ref, do.float(), **kw)
+    torch.cuda.synchronize()
+    assert flash.backward_launches == before + 2
+    torch.testing.assert_close(job.outs[1], lse_ref, atol=LSE_TOL, rtol=0)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
+        assert err <= BACKWARD_TOL * scale, (err, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: the same bits every run
+
+
+def test_flash_attention_function_dispatches_its_backward(cuda):
+    """bf16 at a served head dim takes the backward kernel through the autograd Function
+    (the same bits as a direct launch); float32 and D = 256 recompute the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for dtype, d, kernel_backward in ((torch.bfloat16, 128, True), (torch.float32, 128, False),
+                                      (torch.bfloat16, 256, False)):
+        q = torch.randn((1, 300, 8, d), generator=gen, device=cuda).to(dtype)
+        k, v = torch.randn((2, 1, 300, 2, d), generator=gen, device=cuda).to(dtype)
+        w = torch.randn((1, 300, 8, d), generator=gen, device=cuda).to(dtype)
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = flash.backward_launches
+        out = flash.flash_attention(*xs, causal=True)
+        grads = torch.autograd.grad(out, xs, w)
+        torch.cuda.synchronize()
+        assert flash.backward_launches == before + kernel_backward
+        if kernel_backward:
+            job = flash.prepare(q, k, v, lse=True, causal=True)
+            o = flash.launch(job)
+            direct = flash.backward_launch(flash.backward_prepare(q, k, v, o, job.outs[1], w, causal=True))
+            assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+
+
+def test_flash_attention_runs_from_a_fresh_thread(cuda):
+    """Forward and backward launched from a thread that has made no CUDA call yet (as
+    autograd's threads may be): the launches make the context current before the
+    CUDA driver encodes their tensor maps, and give the main thread's bits."""
+    import threading
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((1, 300, 8, 128), generator=gen, device=cuda).bfloat16()
+    k, v = torch.randn((2, 1, 300, 2, 128), generator=gen, device=cuda).bfloat16()
+    do = torch.randn((1, 300, 8, 128), generator=gen, device=cuda).bfloat16()
+
+    def both():
+        job = flash.prepare(q, k, v, lse=True, causal=True)
+        o = flash.launch(job)
+        return (o, *flash.backward_launch(flash.backward_prepare(q, k, v, o, job.outs[1], do, causal=True)))
+
+    got = []
+    thread = threading.Thread(target=lambda: got.append(both()))
+    thread.start()
+    thread.join()
+    want = both()
+    torch.cuda.synchronize()
+    assert len(got) == 1 and all(torch.equal(a, b) for a, b in zip(got[0], want))
+
+
 @pytest.mark.parametrize("shape", [(2, 77, 40, 16), (1, 301, 24, 4), (2, 5, 8, 2), (1, 63, 16, 32)])
 @pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16], ids=["c_f32", "c_bf16"])
 def test_ssm_scan_matches_plain_version(cuda, shape, c_dtype):
@@ -355,6 +451,11 @@ def test_model_wrappers_reject_bad_inputs(cuda):
         flash.flash_attention(torch.randn((1, 16, 4, 48), device=cuda), *[torch.randn((1, 16, 2, 48), device=cuda)] * 2)
     with pytest.raises(ValueError, match="kv heads"):
         flash.flash_attention(torch.randn((1, 16, 3, 64), device=cuda), k, k)
+    lse = torch.zeros((1, 4, 16), device=cuda)
+    with pytest.raises(ValueError, match="backward kernel takes"):  # float32: the plain recompute's
+        flash.backward_prepare(q, k, k, q, lse, q)
+    with pytest.raises(ValueError, match="backward kernel takes"):  # a window past the keys: a row sees none
+        flash.backward_prepare(*(x.bfloat16() for x in (q, k, k, q)), lse, q.bfloat16(), window=4, q_offset=16)
     dtA = torch.randn((1, 8, 4, 16), device=cuda)
     C = torch.randn((1, 8, 16), device=cuda)
     with pytest.raises(TypeError, match="dtype"):

@@ -156,6 +156,8 @@ def test_kernel_prepare_refuses_cpu_tensors():
     before = kernel.launches
     with pytest.raises(ValueError, match="runs on cuda"):
         kernel.prepare(tq, tk, tv)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernel.backward_prepare(tq, tk, tv, tq, tq[..., 0].transpose(1, 2), tq)
     kernel.flash_attention(tq, tk, tv)  # the plain version: no launch
     assert kernel.launches == before
 
@@ -197,3 +199,109 @@ def test_head_dims_cover_every_registered_config():
             assert cfg.n_heads % cfg.n_kv_heads == 0 and cfg.n_heads // cfg.n_kv_heads <= kernel.ROWS, arch
     assert set(kernel.TMA_HEAD_DIMS) <= set(kernel.HEAD_DIMS) and set(kernel.TMA_KV_TILE) == set(kernel.TMA_HEAD_DIMS)
     assert 112 in kernel.TMA_HEAD_DIMS
+
+
+#: (b, sq, sk, kv, g, d, causal, window, q_offset) of the plain backward's cases: every
+#: row sees a key (the backward's domain); blocks of 16 keep several tiles and ragged edges
+BACKWARD_CASES = [
+    (2, 40, 40, 2, 4, 16, True, 0, 0),  # causal GQA, G 4, ragged against the 16-blocks
+    (1, 33, 33, 3, 1, 8, False, 0, 0),  # bidirectional, G 1
+    (1, 48, 48, 1, 7, 16, True, 11, 0),  # window, G 7
+    (1, 30, 57, 2, 2, 8, True, 9, 27),  # q_offset with a window, Sk > Sq
+    (1, 21, 45, 1, 4, 8, True, 0, 24),  # q_offset, no window
+    (2, 37, 37, 1, 1, 8, False, 13, 0),  # bidirectional with a window
+]
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES, ids=lambda c: "b{}q{}k{}kv{}g{}d{}c{}w{}o{}".format(*map(int, c)))
+def test_plain_backward_gives_the_autograd_gradients(case):
+    """``ref.attention_backward`` from O, the LSE ``block_attention`` returns and dO
+    against autograd through ``block_attention`` and ``naive_attention`` (float32,
+    atol 1e-5: the same sums in other orders); the LSE against a log-sum-exp of the
+    naive scores."""
+    b, sq, sk, n_kv, g, d, causal, window, q_offset = case
+    rng = np.random.default_rng(sum(case))
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    q, k, v, w = t(b, sq, n_kv * g, d), t(b, sk, n_kv, d), t(b, sk, n_kv, d), t(b, sq, n_kv * g, d)
+    assert kernel.sees_a_key(sq, sk, window, q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = ref.block_attention(q, k, v, q_block=16, kv_block=16, return_lse=True, **kw)
+    assert torch.equal(o, ref.block_attention(q, k, v, q_block=16, kv_block=16, **kw))
+    got = ref.attention_backward(q, k, v, o, lse, w, q_block=16, kv_block=16, **kw)
+    for plain in (lambda *a: ref.block_attention(*a, q_block=16, kv_block=16, **kw),
+                  lambda *a: ref.naive_attention(*a, **kw)):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        want = torch.autograd.grad((plain(*xs) * w).sum(), xs)
+        for gx, wx in zip(got, want):
+            torch.testing.assert_close(gx, wx, atol=1e-5, rtol=0)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(g, dim=2)) / d**0.5
+    q_pos, k_pos = torch.arange(sq)[:, None] + q_offset, torch.arange(sk)[None, :]
+    mask = (k_pos <= q_pos) if causal else torch.ones((sq, sk), dtype=torch.bool)
+    if window:
+        mask &= k_pos > q_pos - window
+    torch.testing.assert_close(lse, torch.logsumexp(scores.masked_fill(~mask, ref.NEG_INF), dim=-1), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "device, dtype, d, sq, sk, window, q_offset, path",
+    [
+        ("cuda", torch.bfloat16, 128, 4096, 4096, 0, 0, "kernel"),  # glm4-9b's train step
+        ("cuda", torch.bfloat16, 64, 1500, 1500, 0, 0, "kernel"),  # whisper, internvl2-1b
+        ("cuda", torch.bfloat16, 112, 333, 333, 0, 0, "kernel"),  # kimi-k2
+        ("cuda", torch.bfloat16, 128, 200, 455, 100, 255, "kernel"),  # a window and q_offset, every row sees a key
+        ("cuda", torch.bfloat16, 128, 200, 300, 50, 150, "plain"),  # the last rows see no key
+        ("cuda", torch.bfloat16, 256, 4096, 4096, 0, 0, "plain"),  # recurrentgemma-9b's D 256
+        ("cuda", torch.bfloat16, 16, 64, 64, 0, 0, "plain"),  # the smoke configs' D 16
+        ("cuda", torch.bfloat16, 32, 64, 64, 0, 0, "plain"),
+        ("cuda", torch.float32, 128, 4096, 4096, 0, 0, "plain"),  # float32: the plain recompute
+        ("cpu", torch.bfloat16, 128, 4096, 4096, 0, 0, "plain"),  # no kernel on the CPU
+        ("cpu", torch.float32, 64, 64, 64, 0, 0, "plain"),
+    ],
+)
+def test_backward_dispatch_by_device_dtype_and_head_dim(device, dtype, d, sq, sk, window, q_offset, path):
+    assert kernel.backward_path(device, dtype, d, sq=sq, sk=sk, window=window, q_offset=q_offset) == path
+
+
+@pytest.mark.parametrize("batch, kv, g, sk, groups", [(2, 2, 16, 4096, 4), (1, 8, 4, 4096, 2), (2, 2, 16, 64, 16),
+                                                      (1, 1, 1, 100, 1), (1, 4, 7, 512, 7), (4, 8, 8, 8192, 1)])
+def test_backward_groups_fill_the_card(batch, kv, g, sk, groups):
+    """The fewest groups (a divisor of G) that give three blocks an SM, else one a head."""
+    assert kernel.backward_groups(batch, kv, g, sk) == groups
+
+
+@pytest.mark.parametrize("needs_grad", [True, False])
+def test_function_takes_the_kernel_backward_where_dispatched(monkeypatch, needs_grad):
+    """The Function's wiring on the CPU, with ``backward_path`` forced to ``"kernel"``
+    and the launches replaced by the plain versions: the forward asks for the LSE only
+    when a gradient is needed, and the backward's dq / dk / dv are
+    ``ref.attention_backward``'s, equal to the recompute's within 1e-5."""
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    q, k, v, w = t(1, 24, 4, 8), t(1, 24, 2, 8), t(1, 24, 2, 8), t(1, 24, 4, 8)
+    kw = dict(causal=True, window=7, q_offset=0)
+    asked = []
+
+    def prepare(q, k, v, *, causal, window, q_offset, lse=False):
+        asked.append(lse)
+        out = ref.block_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, q_block=8, kv_block=8,
+                                  return_lse=True)
+        return kernel.Launch(None, (), (), out if lse else out[:1])
+
+    def backward_prepare(q, k, v, o, lse, do, **kw):
+        return kernel.Launch(None, (), (), ref.attention_backward(q, k, v, o, lse, do, q_block=8, kv_block=8, **kw))
+
+    monkeypatch.setattr(kernel, "backward_path", lambda *a, **k: "kernel")
+    monkeypatch.setattr(kernel, "prepare", prepare)
+    monkeypatch.setattr(kernel, "launch", lambda job: job.outs[0])
+    monkeypatch.setattr(kernel, "backward_prepare", backward_prepare)
+    monkeypatch.setattr(kernel, "backward_launch", lambda job: job.outs)
+    xs = [x.clone().requires_grad_(needs_grad) for x in (q, k, v)]
+    out = kernel.FlashAttention.apply(*xs, kw["causal"], kw["window"], kw["q_offset"], 8, 8)
+    assert asked == [needs_grad]
+    if not needs_grad:
+        return
+    got = torch.autograd.grad((out * w).sum(), xs)
+    ys = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad((ref.block_attention(*ys, q_block=8, kv_block=8, **kw) * w).sum(), ys)
+    for gx, wx in zip(got, want):
+        torch.testing.assert_close(gx, wx, atol=1e-5, rtol=0)
