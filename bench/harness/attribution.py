@@ -27,7 +27,7 @@ PREFIX = "repro_torch."
 READINGS = {
     "train_forward_ms": ("train.forward", "device_s", "train.step", 1e3),
     "train_backward_ms": ("train.backward", "device_s", "train.step", 1e3),
-    "attention_recompute_ms": ("kernel.flash_attention.recompute", "device_s", "train.step", 1e3),
+    "attention_backward_ms": ("kernel.flash_attention_backward", "device_s", "train.step", 1e3),
     "train_adamw_ms": ("train.adamw", "device_s", "train.step", 1e3),
     "ssm_inputs_ms": ("prefill.ssm_inputs", "device_s", "prefill", 1e3),
     "decode_device_ms": ("decode.step", "device_s", "decode.step", 1e3),

@@ -2,8 +2,9 @@
 ``prefill`` and ``decode_step``, greedy tokens streamed to the host.
 
 Set-up makes the weights and warms every batch shape of the traffic's cycle
-up on the model's first layers (each layer has the same shapes), and one
-batch on all of them: a prefill, the first token and two decode steps each.
+up on the shortest prefix of the model's layers that holds a layer of every
+kind (:func:`warmup_layers`), and one batch on all of them: a prefill, the
+first token and two decode steps each.
 The window then serves batches in the schedule's order, one after the other:
 the prefill and its first token on the host (the time to first token), then
 ``new_tokens - 1`` decode steps, each step's tokens copied to the host.  No
@@ -33,7 +34,7 @@ from bench.reference import model as reference
 
 #: Decode steps of each warm-up batch.
 WARMUP_STEPS = 2
-#: Layers each warm-up batch runs through.
+#: Layers each warm-up batch runs through at the least.
 WARMUP_LAYERS = 2
 
 
@@ -124,11 +125,21 @@ def program(ctx: Context):
     return cfg, weights.make(T.abstract_params(cfg), ctx.seed, ctx.device)
 
 
+def warmup_layers(layers: list[dict]) -> int:
+    """The shortest prefix of ``layers`` (per-layer parameter dicts) that
+    holds a layer of every kind, and never fewer than :data:`WARMUP_LAYERS`
+    (or all): two layers are of one kind when they have the same parameter
+    names and shapes."""
+    kinds = [tuple(sorted((k, tuple(v.shape)) for k, v in p.items())) for p in layers]
+    last_new = max((kinds.index(k) + 1 for k in set(kinds)), default=0)
+    return min(len(layers), max(WARMUP_LAYERS, last_new))
+
+
 def warm_up(ctx: Context, cfg, params) -> None:
-    """Every batch shape of the cycle through the model's first layers (each
-    layer has the same shapes), then one batch through all of them, so that
-    the allocator already holds what a whole prefill keeps until it returns."""
-    small = dataclasses.replace(cfg, n_layers=min(WARMUP_LAYERS, cfg.n_layers))
+    """Every batch shape of the cycle through the first layers that hold every
+    kind of layer, then one batch through all of them, so that the allocator
+    already holds what a whole prefill keeps until it returns."""
+    small = dataclasses.replace(cfg, n_layers=warmup_layers(params["layers"]))
     part = dict(params, layers=params["layers"][:small.n_layers])
     gen = torch.Generator(device=ctx.device)
     gen.manual_seed(derive(ctx.seed, "warm-up"))

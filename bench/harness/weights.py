@@ -9,7 +9,9 @@ then scaled or set by its name's rule:
 * Mamba's ``A_log``: ``log(1..N)`` on every channel (the S4D-real start);
 * ``embed.tokens``: N(0, 1); ``conv_w``: N(0, 0.25);
 * every other weight: N(0, 1 / fan_in), fan_in the size of the dimensions
-  the weight contracts (the first, or the first two of ``attn.wo``).
+  the weight contracts: the first; the first two of ``attn.wo (H, Dh, d)``;
+  the second of an expert weight, a 3-D leaf under ``moe.`` (``wi_gate``,
+  ``wi_up``, ``wo``: ``(E, d_in, d_out)``, one product per expert).
 
 The same seed gives the same values on the same device, so the reference
 and a run's later checks can make them again.
@@ -36,7 +38,12 @@ def _rule(name: str, shape: tuple) -> tuple[str, float]:
         return "normal", 1.0
     if leaf == "conv_w":
         return "normal", 0.5
-    fan_in = shape[0] * shape[1] if name.endswith("attn.wo") and len(shape) == 3 else shape[0]
+    if len(shape) == 3 and name.endswith("attn.wo"):
+        fan_in = shape[0] * shape[1]
+    elif len(shape) == 3 and name.split(".")[-2:-1] == ["moe"]:
+        fan_in = shape[1]
+    else:
+        fan_in = shape[0]
     return "normal", 1.0 / math.sqrt(fan_in)
 
 

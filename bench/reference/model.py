@@ -1,12 +1,20 @@
-"""The whole model around the layers of :mod:`bench.reference.dense` and
-:mod:`bench.reference.ssm`: the token embedding, the layers, the final
-RMSNorm and the output head ``unembed (d, V)``; the logits a server's tokens
-are judged by, and the training loss with its gradients.
+"""The whole model around its family's layers: the token embedding, the
+layers, the final RMSNorm and the output head ``unembed (d, V)``; the logits
+a server's tokens are judged by, and the training loss with its gradients.
 
 ``params`` is the configuration's parameter dict (``embed.tokens``,
 ``unembed``, ``final_norm.scale``, ``layers``: a list of per-layer dicts).
 Serving takes its tensors as they are and computes each layer in float32;
 training takes float32 leaves that require grad.
+
+The layers are those of ``bench/reference/<family>.py``, found by the model
+block's ``family`` (:func:`bench.family.find`); a family comes in as a new
+file of that name.  Its ``layer(m, p, x, eps, precision)`` returns one
+layer's output on the float32 residual stream ``x (B, S, d)``: ``m`` is the
+model block, ``p`` that layer's parameters as float32 tensors (cast one layer
+at a time), ``precision`` that of :func:`bench.reference.common.mm`.  A
+family whose layers differ tells them apart by ``p``'s keys (``mixer.in_proj``
+against ``attn.wq``, ``moe.router`` against ``mlp.wi_up``).
 """
 
 from __future__ import annotations
@@ -14,10 +22,9 @@ from __future__ import annotations
 import torch
 from torch.utils import checkpoint
 
-from bench.reference import dense, ssm
+from bench.family import find
 from bench.reference.common import cross_entropy_sum, exact_float32, mm, rms_norm
 
-LAYERS = {"dense": dense.layer, "ssm": ssm.layer}
 #: Positions of the output head computed at a time in the loss (the float32 logits of a chunk).
 LOSS_CHUNK = 1024
 
@@ -27,9 +34,7 @@ def _float(p: dict) -> dict:
 
 
 def _layer_fn(m: dict, eps: float, precision: str):
-    if m["family"] not in LAYERS:
-        raise ValueError(f"the reference has no {m['family']!r} family; it has {tuple(LAYERS)}")
-    fn = LAYERS[m["family"]]
+    fn = find("bench.reference", m["family"], "layer").layer
 
     def run(p: dict, x: torch.Tensor) -> torch.Tensor:
         return fn(m, _float(p), x, eps, precision)

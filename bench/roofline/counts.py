@@ -7,44 +7,37 @@ the ``"model"`` block of a configuration file (a plain dict), and count the
 work the inputs need: every weight product once per token (the forward's 2
 operations per weight, the training step's 6), the attention's two products
 over the (query, key) pairs a causal mask leaves, and no element-wise work.
+What differs by family (the weights a token meets, the attention, the scans)
+is its module's under :mod:`bench.roofline.families`, found by name.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 
+from bench.family import find
 from bench.roofline import peaks
 
 
-def _dims(m: dict) -> dict:
-    d = m["d_model"]
-    out = dict(m)
-    if m.get("n_heads"):
-        out["d_head"] = m.get("d_head") or d // m["n_heads"]
-    if m["family"] == "ssm":
-        out["d_inner"] = m.get("ssm_expand", 2) * d
-        out["dt_rank"] = m.get("dt_rank") or math.ceil(d / 16)
-    return out
+def family(m: dict):
+    """The module of ``bench/roofline/families/`` named by the model block's
+    ``family``: its ``matmul_params``, ``attention_flops`` and ``scan_layers``."""
+    return find("bench.roofline.families", m["family"], "matmul_params")
 
 
 def padded_vocab(m: dict) -> int:
     return -(-m["vocab_size"] // 128) * 128
 
 
-def layer_matmul_params(m: dict) -> int:
-    """Weights one layer multiplies each token by (no norm, bias or conv)."""
-    m = _dims(m)
-    d = m["d_model"]
-    if m["family"] == "ssm":
-        di, n, r = m["d_inner"], m["ssm_state"], m["dt_rank"]
-        return d * 2 * di + di * (r + 2 * n) + r * di + di * d
-    if m["family"] != "dense":
-        raise ValueError(f"no count for family {m['family']!r}")
-    h, kv, dh, f = m["n_heads"], m["n_kv_heads"], m["d_head"], m["d_ff"]
-    mlp = d * f * (3 if m.get("gated_mlp", True) else 2)
-    return d * h * dh + 2 * d * kv * dh + h * dh * d + mlp
+def matmul_params(m: dict) -> int:
+    """Weights each token is multiplied by, summed over the layers (no norm,
+    bias, conv or head; a mixture of experts' router and ``top_k`` experts)."""
+    return family(m).matmul_params(m)
+
+
+def scan_layers(m: dict) -> int:
+    """Mamba-1 selective scans one forward runs."""
+    return family(m).scan_layers(m)
 
 
 def visible_pairs(sq: int, sk: int, causal: bool = True, window: int = 0, q_offset: int = 0) -> int:
@@ -59,10 +52,7 @@ def visible_pairs(sq: int, sk: int, causal: bool = True, window: int = 0, q_offs
 def attention_flops(m: dict, batch: int, seq: int) -> float:
     """Forward operations of every layer's causal self-attention over ``batch``
     rows of ``seq`` tokens: 4 * D per visible pair and query head (QK^T, PV)."""
-    m = _dims(m)
-    if m["family"] != "dense":
-        return 0.0
-    return 4.0 * m["d_head"] * visible_pairs(seq, seq) * m["n_heads"] * batch * m["n_layers"]
+    return family(m).attention_flops(m, batch, seq)
 
 
 def train_step_flops(m: dict, batch: int, seq: int) -> float:
@@ -70,7 +60,7 @@ def train_step_flops(m: dict, batch: int, seq: int) -> float:
     backward) over the layers and the output head, plus 3 times the
     attention's forward."""
     tokens = batch * seq
-    weights = m["n_layers"] * layer_matmul_params(m) + m["d_model"] * padded_vocab(m)
+    weights = matmul_params(m) + m["d_model"] * padded_vocab(m)
     return 6.0 * weights * tokens + 3.0 * attention_flops(m, batch, seq)
 
 
@@ -78,7 +68,7 @@ def prefill_flops(m: dict, batch: int, seq: int) -> float:
     """Model FLOPs of one prefill of ``batch`` prompts of ``seq`` tokens: 2 per
     weight and token through the layers, the output head on the last position
     only, and the attention's forward where the model has one."""
-    layers = 2.0 * m["n_layers"] * layer_matmul_params(m) * batch * seq
+    layers = 2.0 * matmul_params(m) * batch * seq
     head = 2.0 * m["d_model"] * padded_vocab(m) * batch
     return layers + head + attention_flops(m, batch, seq)
 
