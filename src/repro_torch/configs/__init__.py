@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``arch id`` -> :class:`ModelConfig`.
 
 Every architecture of :mod:`repro.configs` is registered (``PORTED_ARCHS``,
-in the same order as its ``ARCH_IDS``); an unknown id raises ``KeyError``.
+in the same order as its ``ARCH_IDS``); the architectures the port runs and
+the JAX package does not are registered beside them (``PORT_ONLY_ARCHS``).
+An unknown id raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -25,11 +27,18 @@ _MODULES = {
 
 PORTED_ARCHS = tuple(_MODULES)
 
+_PORT_ONLY_MODULES = {
+    "jamba2-mini": "repro_torch.configs.jamba2_mini",
+}
+
+PORT_ONLY_ARCHS = tuple(_PORT_ONLY_MODULES)
+
 
 def _module(arch: str):
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {PORTED_ARCHS}")
-    return importlib.import_module(_MODULES[arch])
+    module = _MODULES.get(arch) or _PORT_ONLY_MODULES.get(arch)
+    if module is None:
+        raise KeyError(f"unknown arch {arch!r}; known: {PORTED_ARCHS + PORT_ONLY_ARCHS}")
+    return importlib.import_module(module)
 
 
 def get_config(arch: str) -> ModelConfig:

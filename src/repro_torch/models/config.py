@@ -12,7 +12,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | jamba
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,7 +27,7 @@ class ModelConfig:
     dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    moe_impl: str = "dense"  # dense (apply_moe) | ep (expert parallelism over the model axis: moe_ep.py)
+    moe_impl: str = "dense"  # dense (apply_moe) | ep (expert parallelism over the model axis: moe_ep.py) | dropless
 
     # --- SSM (mamba-1) ---
     ssm_state: int = 0
@@ -37,7 +37,7 @@ class ModelConfig:
 
     # --- hybrid (recurrentgemma): RG-LRU + local attention ---
     window: int = 0  # local-attention window
-    block_pattern: tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn")
+    block_pattern: tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn"); jamba: ("mamba_mlp", "attn_moe", ...)
     rnn_width: int = 0  # 0 -> d_model
 
     # --- enc-dec (whisper) ---
@@ -61,7 +61,7 @@ class ModelConfig:
     def __post_init__(self):
         if self.d_head == 0 and self.n_heads:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
-        if self.family == "ssm" and self.dt_rank == 0:
+        if self.family in ("ssm", "jamba") and self.dt_rank == 0:
             object.__setattr__(self, "dt_rank", -(-self.d_model // 16))
         if self.family == "hybrid" and self.rnn_width == 0:
             object.__setattr__(self, "rnn_width", self.d_model)
@@ -103,6 +103,8 @@ class ModelConfig:
         def mlp_params(d_ff, gated):
             return d * d_ff * (3 if gated else 2)
 
+        if self.family == "jamba":
+            return total + sum(self._jamba_layer_params(kind) for kind in self._jamba_kinds())
         if self.family == "ssm":
             di, n, r = self.d_inner, self.ssm_state, self.dt_rank
             per = (
@@ -151,9 +153,29 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: top_k of n_experts)."""
-        if self.family != "moe":
+        if self.family not in ("moe", "jamba"):
             return self.param_count()
         d = self.d_model
         expert = d * self.d_ff * (3 if self.gated_mlp else 2)
         inactive = (self.n_experts - self.top_k) * expert
-        return self.param_count() - self.n_layers * inactive
+        moe_layers = self.n_layers if self.family == "moe" else sum(k.endswith("_moe") for k in self._jamba_kinds())
+        return self.param_count() - moe_layers * inactive
+
+    def _jamba_kinds(self) -> list[str]:
+        return [self.block_pattern[i % len(self.block_pattern)] for i in range(self.n_layers)]
+
+    def _jamba_layer_params(self, kind: str) -> int:
+        """One jamba layer's parameters, every one the port makes: the two norms,
+        the mixer (Mamba-1 with its conv bias and dt / B / C norms, or
+        attention) and the feed-forward (the router and every expert, or the
+        dense MLP)."""
+        d, di, n, r = self.d_model, self.d_inner, self.ssm_state, self.dt_rank
+        mixer, ffn = kind.split("_")
+        if mixer == "mamba":
+            mix = (d * 2 * di + di * self.ssm_conv + di + di * (r + 2 * n) + r * di + di + di * n + di + di * d
+                   + r + 2 * n)
+        else:
+            mix = 2 * d * self.n_heads * self.d_head + 2 * d * self.n_kv_heads * self.d_head
+        mlp = d * self.d_ff * (3 if self.gated_mlp else 2)
+        ff = d * self.n_experts + self.n_experts * mlp if ffn == "moe" else mlp
+        return 2 * d + mix + ff

@@ -102,11 +102,17 @@ def merge_heads(o, w):
     return o.reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
 
+def uses_rope(cfg: ModelConfig) -> bool:
+    """Whether attention rotates q and k: not with learned positions (whisper),
+    nor in the ``jamba`` family, whose attention has no positional encoding."""
+    return not cfg.learned_pos and cfg.family != "jamba"
+
+
 def _qkv(cfg: ModelConfig, params, name: str, x, positions):
     q = project_heads(x, params[f"{name}.wq"])
     k = project_heads(x, params[f"{name}.wk"])
     v = project_heads(x, params[f"{name}.wv"])
-    if not cfg.learned_pos:
+    if uses_rope(cfg):
         cos, sin = (replicated_like(t, x) for t in rope_frequencies(cfg, positions))
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     q = shard(q, "batch", "seq", "heads", "head_dim")
@@ -154,7 +160,7 @@ def apply_attention_decode(cfg: ModelConfig, params, name: str, x, cache, *, win
     q = project_heads(x, params[f"{name}.wq"])
     k_new = project_heads(x, params[f"{name}.wk"])
     v_new = project_heads(x, params[f"{name}.wv"])
-    if not cfg.learned_pos:
+    if uses_rope(cfg):
         cos, sin = rope_frequencies(cfg, torch.tensor([pos], device=x.device))
         q, k_new = apply_rope(q, cos, sin), apply_rope(k_new, cos, sin)
     sequence_parallel = sp_cache_slice(s_c, window) is not None

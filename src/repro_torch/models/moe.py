@@ -29,6 +29,19 @@ gives the same bits every run:
 No Pallas kernel runs here in the JAX package; the expert products are plain
 batched matmuls.  Aux outputs: the GShard load-balance loss and the fraction
 of dropped assignments.
+
+``moe_impl="dropless"`` (:func:`apply_moe_dropless`, the ``jamba`` family)
+drops nothing: the assignments of the whole batch are sorted stably by
+expert, each expert's products run on its own contiguous segment (one
+grouped matmul a weight where the installed torch has ``torch._grouped_mm``,
+else one matmul an expert), and each token's weighted outputs are gathered
+back and added in ascending expert order, as :func:`combine` does.  The
+``jamba`` family's router does not renormalise its top-k weights.
+
+While a :class:`repro_torch.obs.Telemetry` collector is active, a layer on
+plain tensors counts ``moe.assignments`` and ``moe.dropped`` and sets the
+gauge ``moe.load_max_over_mean`` (its busiest expert's assignments over the
+mean); without one nothing is read back from the device.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
 from repro_torch.parallel.sharding import is_placed, keep_shards, local_call, shard
@@ -65,12 +79,14 @@ def moe_capacity(cfg: ModelConfig, tokens_per_row: int) -> int:
 
 def route(cfg: ModelConfig, params, name: str, x):
     """Router probabilities ``(B, S, E)`` (float32) and the top-k weights and
-    experts ``(B, S, k)``, ties to the lower expert."""
+    experts ``(B, S, k)``, ties to the lower expert.  The weights are
+    normalised over the k, but in the ``jamba`` family."""
     logits = (x @ params[f"{name}.router"]).float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_e = top_w[..., : cfg.top_k], top_e[..., : cfg.top_k]
-    top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)
+    if cfg.family != "jamba":
+        top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)
     return probs, top_w, top_e
 
 
@@ -85,7 +101,68 @@ def apply_moe(cfg: ModelConfig, params, name: str, x):
     y, keep = run_experts(cfg, params, name, x, top_w, top_e, 0, cfg.n_experts)
     lb_loss = load_balance_loss(cfg, probs, top_e)
     drop_frac = 1.0 - keep.float().mean()
+    record(cfg, top_e, keep)
     return y, {"load_balance_loss": lb_loss, "drop_frac": drop_frac, "top_e": top_e}
+
+
+def apply_moe_dropless(cfg: ModelConfig, params, name: str, x):
+    """:func:`apply_moe` without a capacity: every assignment runs through
+    its expert's SwiGLU.  x ``(B, S, d)`` -> ``(out, aux)``, aux as
+    :func:`apply_moe`'s (``drop_frac`` 0).
+    The batch's assignments (assignment j of token t at ``t * k + j``) are
+    sorted stably by expert, so an expert's segment keeps the tokens' order;
+    the same input gives the same bits every run (no atomic adds)."""
+    if is_placed(x):
+        raise NotImplementedError("the dropless mixture of experts runs on plain tensors only")
+    bsz, s, d = x.shape
+    k, e = cfg.top_k, cfg.n_experts
+    probs, top_w, top_e = route(cfg, params, name, x)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    ends = torch.searchsorted(flat_e[order], torch.arange(e, device=x.device), right=True)
+    rows = x.reshape(-1, d)[order // k]  # (B * S * k, d), expert by expert
+    h = F.silu(grouped_products(rows, params[f"{name}.wi_gate"], ends)) * grouped_products(
+        rows, params[f"{name}.wi_up"], ends)
+    del rows
+    out = grouped_products(h, params[f"{name}.wo"], ends)
+    del h
+    back = torch.empty_like(out).index_copy_(0, order, out).view(bsz, s, k, d)  # assignment order
+    back = back * top_w[..., None].to(out.dtype)
+    back = torch.gather(back, 2, torch.argsort(top_e, dim=-1)[..., None].expand(-1, -1, -1, d))
+    y = back[:, :, 0]
+    for j in range(1, k):
+        y = y + back[:, :, j]
+    record(cfg, top_e)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, {"load_balance_loss": load_balance_loss(cfg, probs, top_e), "drop_frac": zero, "top_e": top_e}
+
+
+def grouped_products(rows, w, ends):
+    """``rows[lo:hi] @ w[e]`` for each expert e's segment ``[ends[e - 1],
+    ends[e])`` of ``rows (A, K)`` (sorted by expert), w ``(E, K, N)``: one
+    ``torch._grouped_mm`` where the installed torch has it and can take these
+    operands (bf16 on the card; rows of K and N a multiple of 16 bytes), else
+    one matmul an expert (reading the segments' sizes on the host)."""
+    aligned = all(n * rows.element_size() % 16 == 0 for n in (rows.shape[1], w.shape[2]))
+    if hasattr(torch, "_grouped_mm") and aligned and (rows.device.type == "cpu" or rows.dtype == torch.bfloat16):
+        return torch._grouped_mm(rows, w, offs=ends.to(torch.int32))
+    sizes = torch.diff(ends, prepend=ends.new_zeros(1)).tolist()
+    return torch.cat([seg @ w[i] for i, seg in enumerate(torch.split(rows, sizes))])
+
+
+def record(cfg: ModelConfig, top_e, keep=None) -> None:
+    """The layer's counters and gauge, only while a collector is active:
+    ``moe.assignments`` (tokens times ``top_k``), ``moe.dropped`` (those
+    ``keep`` leaves out; none on the dropless path) and
+    ``moe.load_max_over_mean``."""
+    tel = obs.current()
+    if not tel.enabled or is_placed(top_e):
+        return
+    n = top_e.numel()
+    load = torch.bincount(top_e.reshape(-1), minlength=cfg.n_experts)
+    tel.count("moe.assignments", n)
+    tel.count("moe.dropped", 0 if keep is None else n - int(keep.sum()))
+    tel.gauge("moe.load_max_over_mean", float(load.max()) * cfg.n_experts / n)
 
 
 def run_experts(cfg: ModelConfig, params, name: str, x, top_w, top_e, first: int, n: int):

@@ -1,7 +1,10 @@
 """Mamba-1 block (falcon-mamba-7b): causal conv + selective state-space scan.
 
 The port of :mod:`repro.models.ssm`.  The prefill scan goes through the SSM
-scan op (the CUDA kernel on the card); the decode step is plain.
+scan op (the CUDA kernel on the card); the decode step is plain.  The
+``jamba`` family's mixer adds RMS norms on dt's low-rank input, B and C
+(``dt_norm``, ``b_norm``, ``c_norm``) after ``x_proj``; the ``ssm`` family
+has none.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
 from repro_torch.parallel.sharding import shard
@@ -35,14 +39,20 @@ def init_mamba(b: ParamBuilder, name: str, cfg: ModelConfig):
     b.const(f"{name}.A_log", torch.log(a), ("mlp", "state"))
     b.ones(f"{name}.D", (di,), ("mlp",), dtype=torch.float32)
     b.dense(f"{name}.out_proj", (di, d), ("mlp", "fsdp"))
+    if cfg.family == "jamba":
+        b.ones(f"{name}.dt_norm.scale", (r,), (None,))
+        b.ones(f"{name}.b_norm.scale", (n,), ("state",))
+        b.ones(f"{name}.c_norm.scale", (n,), ("state",))
 
 
 def conv_tail(x, k: int):
     """The last ``k - 1`` positions of x ``(B, S, D)``, left-padded with zeros
-    when ``S < k - 1``: the decode conv state after a prefill."""
+    when ``S < k - 1``: the decode conv state after a prefill, in storage of
+    its own (a slice would keep the whole of x, the layer's input projection,
+    alive as long as the cache)."""
     b, s, d = x.shape
     if s >= k - 1:
-        return x[:, s - (k - 1) :]
+        return x[:, s - (k - 1) :].clone()
     return torch.cat([x.new_zeros((b, k - 1 - s, d)), x], dim=1)
 
 
@@ -73,6 +83,10 @@ def ssm_inputs(cfg: ModelConfig, params, name: str, x_act):
     # no-op on plain tensors; on placed ones the split channels leave a partial sum)
     proj = shard(x_act @ params[f"{name}.x_proj"], "batch", "seq", None)
     dt_low, bmat, cmat = proj[..., :r], proj[..., r : r + n], proj[..., r + n :]
+    if cfg.family == "jamba":
+        dt_low = L.apply_norm(cfg, params, f"{name}.dt_norm", dt_low)
+        bmat = L.apply_norm(cfg, params, f"{name}.b_norm", bmat)
+        cmat = L.apply_norm(cfg, params, f"{name}.c_norm", cmat)
     dt = dt_low @ params[f"{name}.dt_proj"] + params[f"{name}.dt_bias"]
     dt = softplus(dt.float())  # (B, S, D)
     a = -torch.exp(params[f"{name}.A_log"].float())  # (D, N)

@@ -10,6 +10,15 @@ precomputed ``frames``, decoder layers with self- and cross-attention),
 list of per-layer param dicts applied in a Python loop, as there; an
 encoder-decoder keeps its encoder's layers in ``params["encoder"]``.
 
+The port adds a family the JAX package does not have: ``jamba`` (AI21's
+Jamba), whose layer ``i`` is of the kind ``block_pattern[i % len]``: one of
+``mamba_mlp``, ``mamba_moe``, ``attn_mlp`` and ``attn_moe``, a mixer
+(Mamba-1 with RMS norms on dt / B / C, or attention without positional
+encoding) and a feed-forward (a mixture of experts, or a dense MLP), each
+``x += f(norm(x))``.  Its cache holds the attention layers' keys / values
+and the Mamba layers' conv / scan states in one list.  It runs on plain
+tensors only (no mesh).
+
 Every self-attention of a prefill or forward (the encoder's bidirectional
 one included) goes through the flash-attention op; the decoder's
 cross-attention over the encoder's output is the plain ``naive_attention``,
@@ -84,7 +93,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder, model_dtype
 from repro_torch.parallel import sharding as SH
 
-FAMILIES = ("dense", "vlm", "moe", "encdec", "hybrid", "ssm")
+FAMILIES = ("dense", "vlm", "moe", "encdec", "hybrid", "ssm", "jamba")
+#: The kinds of a ``jamba`` layer: its mixer, then its feed-forward.
+JAMBA_KINDS = ("mamba_mlp", "mamba_moe", "attn_mlp", "attn_moe")
 #: The logical axes a batch entry is placed by on a mesh (a decode step's
 #: tokens ``(B, 1)`` as ``tokens``: ``"seq"`` is on no mesh axis).
 BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), "vision_mask": ("batch", "seq"),
@@ -99,6 +110,11 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     if cfg.family == "hybrid":
         pattern = cfg.block_pattern or ("rec",)
         return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    if cfg.family == "jamba":
+        unknown = sorted(set(cfg.block_pattern) - set(JAMBA_KINDS))
+        if not cfg.block_pattern or unknown:
+            raise ValueError(f"a jamba block_pattern takes kinds of {JAMBA_KINDS}, not {unknown or 'none'}")
+        return [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
     if cfg.family == "moe":
         return ["moe"] * cfg.n_layers
     if cfg.family == "encdec":
@@ -108,6 +124,15 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 
 def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window if (cfg.family == "hybrid" and kind == "attn") else 0
+
+
+def _is_moe(kind: str) -> bool:
+    return kind == "moe" or kind.endswith("_moe")
+
+
+def _has_moe(cfg: ModelConfig) -> bool:
+    """Whether the model's loss adds the MoE layers' load-balance loss."""
+    return any(map(_is_moe, layer_kinds(cfg)))
 
 
 def place_batch(mesh, batch: dict) -> dict:
@@ -165,6 +190,17 @@ def _init_layer(cfg: ModelConfig, kind: str, b: ParamBuilder) -> ParamBuilder:
         L.init_norm(b, "norm2", cfg)
         M.init_moe(b, "moe", cfg)
         if cfg.dense_residual:
+            L.init_mlp(b, "mlp", cfg)
+    elif kind in JAMBA_KINDS:
+        L.init_norm(b, "norm1", cfg)
+        if kind.startswith("mamba_"):
+            S.init_mamba(b, "mixer", cfg)
+        else:
+            L.init_attention(b, "attn", cfg)
+        L.init_norm(b, "norm2", cfg)
+        if _is_moe(kind):
+            M.init_moe(b, "moe", cfg)
+        else:
             L.init_mlp(b, "mlp", cfg)
     elif kind == "decoder":
         L.init_norm(b, "norm1", cfg)
@@ -249,12 +285,13 @@ def _fsdp_gather(p: dict) -> dict:
     return out
 
 
-def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, memory=None, q_block, kv_block, impl):
+def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, memory=None, q_block, kv_block, impl, moe_span=None):
     """One layer over the whole sequence.  Returns ``(x, state, aux)``: the
     mixer's decode cache (Mamba / RG-LRU), the attention's ``(k, v)`` (a
     decoder adds its cross-attention's ``(k, v)`` over ``memory``, the
     encoder's output), and a MoE layer's aux (else None).  Placed parameters
-    are gathered over the ``fsdp`` axes first (:func:`_fsdp_gather`)."""
+    are gathered over the ``fsdp`` axes first (:func:`_fsdp_gather`).
+    ``moe_span``: the span a MoE layer's experts are recorded in."""
     if SH.is_placed(x):
         p = _fsdp_gather(p)
     if kind == "mamba":
@@ -263,6 +300,8 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, memory=None, q_bloc
     attn = dict(q_block=q_block, kv_block=kv_block, impl=impl)
     if kind == "rec":
         h, state = R.apply_rglru_prefill(cfg, p, "mixer", L.apply_norm(cfg, p, "norm1", x), impl=impl)
+    elif kind.startswith("mamba_"):
+        h, state = S.apply_mamba_prefill(cfg, p, "mixer", L.apply_norm(cfg, p, "norm1", x), impl=impl)
     elif kind == "decoder":
         h, state = L.apply_attention(cfg, p, "self_attn", L.apply_norm(cfg, p, "norm1", x), causal=True, **attn)
         x = x + h
@@ -275,18 +314,24 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, memory=None, q_bloc
             cfg, p, "attn", L.apply_norm(cfg, p, "norm1", x), causal=kind != "encoder", window=_window(cfg, kind),
             **attn,
         )
-    x, aux = _feed_forward(cfg, kind, p, x + h)
+    x, aux = _feed_forward(cfg, kind, p, x + h, span=moe_span)
     return x, state, aux
 
 
-def _feed_forward(cfg: ModelConfig, kind: str, p: dict, x):
+#: The mixture of experts of each ``moe_impl``.
+_MOE_IMPLS = {"dense": M.apply_moe, "ep": MEP.apply_moe_ep, "dropless": M.apply_moe_dropless}
+
+
+def _feed_forward(cfg: ModelConfig, kind: str, p: dict, x, *, span=None):
     """The layer's second half on the residual stream x: the MLP, or a MoE
-    layer's experts (plus the dense MLP beside them with ``dense_residual``).
-    Returns ``(x, the MoE's aux or None)``."""
+    layer's experts (plus the dense MLP beside them with ``dense_residual``),
+    recorded in the span ``span`` when one is named.  Returns ``(x, the
+    MoE's aux or None)``."""
     h = L.apply_norm(cfg, p, "norm2", x)
-    if kind != "moe":
+    if not _is_moe(kind):
         return x + L.apply_mlp(cfg, p, "mlp", h), None
-    y, aux = (MEP.apply_moe_ep if cfg.moe_impl == "ep" else M.apply_moe)(cfg, p, "moe", h)
+    with obs.current().span(span) if span else contextlib.nullcontext():
+        y, aux = _MOE_IMPLS[cfg.moe_impl](cfg, p, "moe", h)
     if cfg.dense_residual:
         y = y + L.apply_mlp(cfg, p, "mlp", h)
     return x + y, aux
@@ -366,7 +411,7 @@ def _forward_layers(cfg: ModelConfig, params: dict, batch: dict, dev, *, q_block
     x = _embed_inputs(cfg, params, batch, dev)
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
     kinds = layer_kinds(cfg)
-    n_moe = max(1, kinds.count("moe"))
+    n_moe = max(1, sum(map(_is_moe, kinds)))
     aux = {name: SH.replicated_like(torch.zeros((), dtype=torch.float32, device=dev), x)
            for name in ("load_balance_loss", "drop_frac")}
     for kind, p in zip(kinds, params["layers"]):
@@ -408,7 +453,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **fw_kwargs):
     nll = (lse - label_logit) * valid.float()
     n_valid = torch.clamp_min(valid.sum(), 1)
     loss = nll.sum() / n_valid
-    if cfg.family == "moe":
+    if _has_moe(cfg):
         loss = loss + cfg.router_aux_weight * aux["load_balance_loss"]
     return loss, {"loss": loss, "nll": nll.sum() / n_valid, **aux}
 
@@ -432,7 +477,7 @@ def _placed_loss(cfg: ModelConfig, logits, labels, aux):
     whole = [Replicate()] * logits.device_mesh.ndim
     nll = (nll.sum() / n_valid).redistribute(logits.device_mesh, whole)
     aux = {k: v.redistribute(logits.device_mesh, whole) for k, v in aux.items()}
-    loss = nll + cfg.router_aux_weight * aux["load_balance_loss"] if cfg.family == "moe" else nll
+    loss = nll + cfg.router_aux_weight * aux["load_balance_loss"] if _has_moe(cfg) else nll
     return loss, {"loss": loss, "nll": nll, **aux}
 
 
@@ -490,7 +535,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device
                                 if isinstance(x, torch.Tensor) else x, whole, specs)
     caches = []
     for kind in layer_kinds(cfg):
-        if kind == "mamba":
+        if kind == "mamba" or kind.startswith("mamba_"):
             caches.append(S.init_mamba_cache(cfg, batch, dtype, dev))
         elif kind == "rec":
             caches.append(R.init_rglru_cache(cfg, batch, dtype, dev))
@@ -512,7 +557,7 @@ def cache_axes(cfg: ModelConfig) -> dict:
     ``cache_axes``)."""
     caches = []
     for kind in layer_kinds(cfg):
-        if kind == "mamba":
+        if kind == "mamba" or kind.startswith("mamba_"):
             caches.append(S.mamba_cache_axes())
         elif kind == "rec":
             caches.append(R.rglru_cache_axes())
@@ -562,9 +607,9 @@ def _prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, dev, *, 
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
     new_caches = []
     for kind, p, lc in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
-        x, state, _ = _apply_layer(cfg, kind, p, x, memory=memory, **kw)
-        if kind in ("mamba", "rec"):
-            new_caches.append({"conv": state["conv"].to(dtype), "h": state["h"]})
+        x, state, _ = _apply_layer(cfg, kind, p, x, memory=memory, moe_span="prefill.moe", **kw)
+        if isinstance(state, dict):  # a Mamba / RG-LRU mixer's conv tail and last state
+            new_caches.append(state)
             continue
         if kind == "decoder":
             k, v, ck, cv = state
@@ -629,6 +674,8 @@ def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
         with tel.span("decode.mixer"):
             if kind == "rec":
                 h, nc = R.apply_rglru_decode(cfg, p, "mixer", xn, lc)
+            elif kind.startswith("mamba_"):
+                h, nc = S.apply_mamba_decode(cfg, p, "mixer", xn, lc)
             elif kind == "decoder":
                 h, sc = L.apply_attention_decode(cfg, p, "self_attn", xn, lc["self"])
                 nc = {"self": sc, "cross_k": lc["cross_k"], "cross_v": lc["cross_v"]}
@@ -638,7 +685,7 @@ def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
             x = x + h
             h = _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), lc["cross_k"], lc["cross_v"])
         new_caches.append(nc)
-        x = _feed_forward(cfg, kind, p, x + h)[0]
+        x = _feed_forward(cfg, kind, p, x + h, span="decode.moe")[0]
     logits = L.unembed(cfg, params, L.apply_norm(cfg, params, "final_norm", x))
     cache = {"layers": new_caches, "len": pos + 1}
     return logits, _as_cache_axes(cfg, cache) if SH.is_placed(logits) else cache

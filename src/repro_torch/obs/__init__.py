@@ -29,11 +29,21 @@ The model paths record, from the entry points down to the kernels:
 ``train.adamw``                        the AdamW update
 ``prefill`` (``rows``, ``ids``)        ``models/transformer.py::prefill``
 ``prefill.ssm_inputs``                 a Mamba layer's scan inputs (``models/ssm.py``)
+``prefill.moe``                        a MoE layer's routing, expert products and combine
 ``decode.step`` (``pos``)              ``models/transformer.py::decode_step``
 ``decode.mixer``                       a layer's mixer in a decode step
+``decode.moe``                         a MoE layer's experts in a decode step
 ``kernel.<name>``                      a kernel launch (``kernels/_launch.py::call``)
 ``kernel.flash_attention_backward``    the attention's backward kernel (its four launches)
 ``kernel.<name>.recompute``            a kernel's plain backward (``recompute_grads``)
+=====================================  ===============================================
+
+and, with a collector only (they read the routing back from the device):
+
+=====================================  ===============================================
+``moe.assignments`` (counter)          a MoE layer's tokens times ``top_k`` (``models/moe.py``)
+``moe.dropped`` (counter)              the assignments over an expert's capacity (0 when dropless)
+``moe.load_max_over_mean`` (gauge)     the last MoE layer's busiest expert's assignments over the mean
 =====================================  ===============================================
 
 While ``torch.profiler`` records, every span is also a ``record_function``
