@@ -136,15 +136,21 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``remat=False``, ``q_block = kv_block = 1024``) through
    ``repro_torch.train.steps.make_train_step``: holds the codec kernel against
    its plain version on every leaf of the initial state and times it on the
-   biggest; one untimed warm-up step (its loss against the same step's loss
-   through ``impl="plain"``), then timed steps with their flash-attention
-   launches counted.
+   biggest; holds the AdamW update kernel against the plain ``upd_block`` bit
+   for bit (every pairing of parameter and moment dtypes at ragged lengths, on
+   views off their 16-byte boundary, and the embedding's 151552 x 4096 bf16
+   leaf with float32 moments) and its sum of squares against ``torch.sum``
+   within ``ADAMW_SUMSQ_RTOL``, and times both at the embedding beside their
+   bounds and their plain versions; one untimed warm-up step (its loss against
+   the same step's loss through ``impl="plain"``), then timed steps with their
+   flash-attention and AdamW launches counted (one update a leaf).
 15. Runs a spot campaign on that model through ``SpotTrainer`` (int8 codec,
    async writes, ``keep=2``, a checkpoint directory removed at exit) on the
    trace of ``tests/train/test_spot_trainer.py``: one preemption, one restore,
    ``ckpt_codec`` launched once per quantized leaf per checkpoint, and the
    restored state within half a quantization step per block of the saved
-   one.  Prints one ``{"training": ...}`` line.
+   one, and ``adamw`` launched once per leaf per executed step.  Prints one
+   ``{"training": ...}`` line.
 16. The distribution substrate, with four ranks of one gloo process group as
    four processes on the one card (``repro_torch.parallel.ranks.run_ranks``;
    the kernels are built before any rank starts).  Error-feedback int8
@@ -220,7 +226,7 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    (started with the phase, beside the single-process runs), each record ``ok``.  Prints one
    ``{"placed_serving": ...}`` line.
 19. Prints one ``{"phase_s": ...}`` line (each phase's wall seconds, by number), then
-   one ``{"kernels": [...]}`` line with the five kernels (the attention
+   one ``{"kernels": [...]}`` line with the six kernels (the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
@@ -228,7 +234,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    contended studies of phase 6; the model kernels' and the codec's: serving,
    training and the campaign, the SP decode's prefills in the ranks of phase
    16, the mesh phase's ranks and the placed-serving phase's ranks; a model
-   kernel's ``max_abs_err`` the worst of its checks, phase 18's included).
+   kernel's ``max_abs_err`` the worst of its checks, phase 18's included; the
+   AdamW row's launches by path: training, the campaign and the mesh ranks).
 20. Prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -1321,9 +1328,11 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.spot_sweep import kernel as sweep
     from repro_torch.kernels.ssm_scan import kernel as ssm
 
+    from repro_torch.kernels.adamw import kernel as adamw
     from repro_torch.kernels.ckpt_codec import kernel as codec
 
-    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm, "ckpt_codec": codec}
+    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm, "ckpt_codec": codec,
+            "adamw": adamw}
 
 
 def reset_launches() -> None:
@@ -1915,6 +1924,12 @@ def model_kernel_rows(found, small_errs) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 CODEC_SOURCE = ("src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu", "src/repro/kernels/ckpt_codec/kernel.py:27")
+#: The AdamW kernels' source; they replace no TPU kernel (the JAX package leaves AdamW to XLA).
+ADAMW_SOURCE = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
+#: (b1, b2, 1 - b1, 1 - b2, eps, weight_decay) of the training phase's AdamW, as adamw_update passes them.
+ADAMW_CONSTS = (0.9, 0.95, 1 - 0.9, 1 - 0.95, 1e-8, 0.1)
+#: The sum of squares against torch.sum: the same float32 additions in another order.
+ADAMW_SUMSQ_RTOL = 1e-6
 #: Small codec cases: element counts, each in float32, bfloat16 and float16.
 CODEC_SIZES = (1, 255, 256, 257, 1000, 4096, (1 << 20) + 3)
 #: Training checks on the smoke configs, kernels vs plain path.  bf16: the loss within
@@ -2099,6 +2114,104 @@ def check_codec_on_state(state, device) -> dict:
     return {"leaves_checked": len(leaves), "max_abs_err": 0.0, **big, "bf16_leaf": big_bf16}
 
 
+def adamw_inputs(p, mdt, seed):
+    """A gradient and moments of a few steps' size for leaf ``p`` (moments of dtype ``mdt``), and
+    the step's [clip, b1c, b2c, lr] at step 3 with the gradient clipped to norm 1."""
+    import torch
+
+    gen = torch.Generator(device=p.device).manual_seed(seed)
+    r = lambda scale, dt: (torch.randn(p.shape, generator=gen, device=p.device) * scale).to(dt)  # noqa: E731
+    g, mu = r(3.0, p.dtype), r(0.01, mdt)
+    nu = (torch.rand(p.shape, generator=gen, device=p.device) * 1e-4).to(mdt)
+    f = lambda x: torch.full((), x, device=p.device)  # noqa: E731
+    clip = torch.minimum(f(1.0), f(1.0) / torch.sqrt(torch.sum(torch.square(g.float()))))
+    step = torch.stack([clip, 1.0 - torch.pow(f(0.9), f(3.0)), 1.0 - torch.pow(f(0.95), f(3.0)), f(1e-4)])
+    return g, mu, nu, step
+
+
+def adamw_equal(p, g, mu, nu, step, what) -> None:
+    import torch
+
+    from repro_torch.kernels.adamw import kernel as adamw
+    from repro_torch.kernels.adamw import ref as adamw_ref
+
+    got = adamw.update(p, g, mu, nu, step, ADAMW_CONSTS)
+    want = adamw_ref.upd_block(p, g, mu, nu, step, ADAMW_CONSTS)
+    torch.cuda.synchronize()
+    if not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"{what}: the AdamW kernel's update differs from the plain upd_block's")
+
+
+def adamw_sums_held(g, sums, what) -> float:
+    """The relative gap of the kernel's sums of squares of ``g`` (two calls) to torch.sum's;
+    raises unless both calls agree bit for bit and lie within ADAMW_SUMSQ_RTOL."""
+    import torch
+
+    want = torch.sum(torch.square(g.float()))
+    torch.cuda.synchronize()
+    err = abs(float(sums[0]) - float(want)) / max(float(want), 1e-30)
+    if not torch.equal(sums[0], sums[1]) or err > ADAMW_SUMSQ_RTOL:
+        raise AssertionError(f"AdamW sum of squares of {what}: {[float(x) for x in sums]} against {float(want)}")
+    return err
+
+
+def adamw_checks(table, device) -> dict:
+    """The AdamW kernels on the card: the update bit for bit against the plain ``upd_block`` for
+    every pairing of parameter and moment dtypes at ragged lengths, on views off a 16-byte
+    boundary too, the sum of squares within ADAMW_SUMSQ_RTOL of torch.sum and equal to itself;
+    then both on ``table`` (the embedding, 151552 x 4096 bf16, float32 moments): checked likewise
+    and timed beside their bounds (22 and 2 bytes an element at HBM bandwidth) and their plain
+    versions."""
+    import torch
+
+    from repro_torch.kernels.adamw import kernel as adamw
+    from repro_torch.kernels.adamw import ref as adamw_ref
+
+    pairs = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.float32, torch.bfloat16)]
+    checked = 0
+    for pdt, mdt in pairs:
+        for n in (1, 7, 4097, (1 << 20) + 3):
+            for offset in (0, 3):
+                base = torch.randn(n + offset, device=device).to(pdt)
+                g, mu, nu, step = adamw_inputs(base, mdt, seed=n + offset)
+                p, g, mu, nu = (x[offset:] for x in (base, g, mu, nu))
+                what = f"{pdt}/{mdt}, {n} elements at offset {offset}"
+                adamw_equal(p, g, mu, nu, step, what)
+                adamw_sums_held(g, [adamw.sum_of_squares(g) for _ in range(2)], what)
+                checked += 1
+    g, mu, nu, step = adamw_inputs(table, torch.float32, seed=7)
+    adamw_equal(table, g, mu, nu, step, f"the embedding {tuple(table.shape)}")
+    n = table.numel()
+    job = adamw.prepare(table, g, mu, nu, step, ADAMW_CONSTS)
+    ms = time_ms(lambda: adamw.launch(job), reps=10)
+    plain_ms = time_ms(lambda: adamw_ref.upd_block(table, g, mu, nu, step, ADAMW_CONSTS), reps=3)
+    bound_ms = 1e3 * n * (3 * table.element_size() + 4 * mu.element_size()) / HBM_BYTES_PER_S
+    del job
+    sum_job = adamw.prepare_sum_of_squares(g)
+    err = adamw_sums_held(g, [adamw.launch_sum_of_squares(sum_job).clone() for _ in range(2)], "the embedding")
+    sumsq = {"ms": time_ms(lambda: adamw.launch_sum_of_squares(sum_job), reps=10),
+             "plain_ms": time_ms(lambda: adamw_ref.sum_of_squares(g), reps=3),
+             "bound_ms": 1e3 * n * g.element_size() / HBM_BYTES_PER_S, "bound_by": "bytes", "rel_err": err}
+    sumsq["bound_share"] = sumsq["bound_ms"] / sumsq["ms"]
+    out = {"cases_checked": checked, "shape": list(table.shape), "dtype": "bfloat16", "moment_dtype": "float32",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+           "sumsq": sumsq}
+    print(f"AdamW: update kernel == plain upd_block bit for bit on {checked} small cases and the embedding "
+          f"{tuple(table.shape)}: {ms:.4f} ms (bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} %; plain "
+          f"{plain_ms:.3f} ms); sum of squares {sumsq['ms']:.4f} ms (bound {sumsq['bound_ms']:.4f} ms; plain "
+          f"{sumsq['plain_ms']:.3f} ms; {err:.2e} from torch.sum)", flush=True)
+    del g, mu, nu, step, sum_job
+    torch.cuda.empty_cache()
+    return out
+
+
+def adamw_row(measured, launches_by_path) -> dict:
+    return {"name": "adamw", "route": "cuda", "source": ADAMW_SOURCE, "replaces": None,
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path, "max_abs_err": 0.0,
+            "match": True, "library_ms": None, **measured}
+
+
 def train_cfg():
     import dataclasses
 
@@ -2107,9 +2220,9 @@ def train_cfg():
     return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
 
 
-def train_full_width(device) -> tuple[dict, dict]:
+def train_full_width(device) -> tuple[dict, dict, dict]:
     """Phase 9: the full-width train step.  Returns the training numbers and the
-    codec's full-width measurement."""
+    codec's and the AdamW kernels' full-width measurements."""
     import torch
 
     from repro_torch.checkpoint import tree as tree_lib
@@ -2129,6 +2242,8 @@ def train_full_width(device) -> tuple[dict, dict]:
     n_params = sum(x.numel() for x in tree_lib.leaves(params))
     state_bytes = sum(x.numel() * x.element_size() for x in tree_lib.leaves((params, opt_state)))
     codec_row = check_codec_on_state((params, opt_state), device)
+    adamw_measured = adamw_checks(params["embed.tokens"], device)
+    n_leaves = len(tree_lib.leaves(params))
 
     data = TokenStream(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=11, device=device)
     step = make_train_step(cfg, opt_cfg, remat=False, q_block=1024, kv_block=1024)
@@ -2161,7 +2276,7 @@ def train_full_width(device) -> tuple[dict, dict]:
         launches.append(read_launches())
         backward.append(flash.backward_launches - before)
         losses.append(float(metrics["loss"]))
-    want = {name: (TRAIN_LAYERS if name == "flash_attention" else 0) for name in launches[0]}
+    want = {name: {"flash_attention": TRAIN_LAYERS, "adamw": n_leaves}.get(name, 0) for name in launches[0]}
     if any(l != want for l in launches) or any(n != TRAIN_LAYERS for n in backward):
         raise AssertionError(f"full-width training: launches per step {launches}, backward {backward}, expected "
                              f"{want} and {TRAIN_LAYERS}")
@@ -2176,13 +2291,14 @@ def train_full_width(device) -> tuple[dict, dict]:
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_memory_gb": peak_gb,
         "flash_attention_launches_per_step": launches[0]["flash_attention"],
         "flash_attention_backward_launches_per_step": backward[0],
+        "adamw_launches_per_step": launches[0]["adamw"],
         "first_loss": first_loss, "first_loss_plain": loss_plain, "losses": losses,
     }
     print(f"full-width training: {TRAIN_LAYERS} layers, step {step_s:.3f} s, {out['tokens_per_s']:.0f} tokens/s, "
           f"peak {peak_gb:.2f} GB, first loss {first_loss:.4f} (plain {loss_plain:.4f})", flush=True)
     del params, opt_state, metrics, batch
     torch.cuda.empty_cache()
-    return out, codec_row
+    return out, codec_row, adamw_measured
 
 
 class CampaignWatch:
@@ -2324,7 +2440,9 @@ def spot_campaign(device) -> dict:
         raise AssertionError(f"campaign: ckpt_codec launched {launches['ckpt_codec']} times, expected "
                              f"{report.n_checkpoints} checkpoints x {n_quantized} quantized leaves")
     executed = len(report.losses)
-    if launches["flash_attention"] != executed * TRAIN_LAYERS or not all(x == x for x in report.losses):
+    n_leaves = len(tree_lib.leaves(shapes))
+    if (launches["flash_attention"] != executed * TRAIN_LAYERS or launches["adamw"] != executed * n_leaves
+            or not all(x == x for x in report.losses)):
         raise AssertionError(f"campaign: {launches} over {executed} steps, losses {report.losses}")
     if len(watch.restores) != 1:
         raise AssertionError(f"campaign: {len(watch.restores)} restores checked")
@@ -2984,6 +3102,7 @@ def mesh_train_rank(rank) -> dict:
     out = {"losses": [], "grad_norms": [], "step_s": [], "launches": [], "gathers": []}
     with S.use_compat_mesh(mesh):
         params = T.init_params(cfg, seed=0, device=device)  # every rank the same whole init; each keeps its shards
+        out["leaves"] = len(tree_lib.leaves(params))
         params = S.place(params, mesh, S.shard_params(mesh, T.param_axes(cfg), abstract_tree=params))
         opt_state = adamw_init(params, mesh_opt())  # the moments placed as their parameters
         torch.cuda.empty_cache()
@@ -3186,7 +3305,7 @@ def mesh_phase(device, card) -> dict:
             for key in ("losses", "grad_norms"):
                 if not held(out[key][i], single[key][i], tol):
                     raise AssertionError(f"mesh train step {i}: {key} {out[key][i]} vs one process {single[key][i]}")
-            if out["launches"][i]["flash_attention"] != TRAIN_LAYERS:
+            if out["launches"][i]["flash_attention"] != TRAIN_LAYERS or out["launches"][i]["adamw"] != out["leaves"]:
                 raise AssertionError(f"mesh train rank {r} step {i}: launches {out['launches'][i]}")
         if not out["split_leaves"] or not out["split_leaves_hold_a_quarter"]:
             raise AssertionError(f"mesh train rank {r}: a leaf split both ways holds more than a quarter")
@@ -3831,7 +3950,7 @@ def main() -> int:
 
     # -- 14. the attention's backward kernel, then training at full width ----
     backward_rows = attention_backward_rows(device)
-    training, codec_measured = train_full_width(device)
+    training, codec_measured, adamw_measured = train_full_width(device)
     lap("14")
 
     # -- 15. the spot campaign at full width ----------------------------------
@@ -3877,8 +3996,10 @@ def main() -> int:
     }
     codec = codec_row(codec_measured, campaign["launches"]["ckpt_codec"] + mesh["launches"]["ckpt_codec"])
     codec["launches_by_path"] = {"campaign": campaign["launches"]["ckpt_codec"], "mesh": mesh["launches"]["ckpt_codec"]}
+    adamw = adamw_row(adamw_measured, {"training": TRAIN_STEPS * training["adamw_launches_per_step"],
+                                       "campaign": campaign["launches"]["adamw"], "mesh": mesh["launches"]["adamw"]})
     print(json.dumps({"phase_s": phase_walls}), flush=True)
-    print(json.dumps({"kernels": [sweep_entry, *rows, backward_row, codec]}), flush=True)
+    print(json.dumps({"kernels": [sweep_entry, *rows, backward_row, codec, adamw]}), flush=True)
 
     # -- 20. the result line ------------------------------------------------
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,22 @@ clipped to a global norm.  The arithmetic follows
 corrections ``1 - b ** step`` are taken in float32, as JAX's weak types give
 them, not as Python float64.  The update runs under ``torch.no_grad()``.
 
-The update is element by element, so each leaf is updated in blocks of
-:data:`UPDATE_ELEMENTS` (the same bits as the whole leaf at once, with a
-block's float32 temporaries).  Placed leaves (DTensors) are updated on their
-local shards: a parameter, its gradient and its moments must share
+On the card the update and the norm are one hand-written kernel each
+(:mod:`repro_torch.kernels.adamw`): one launch a leaf reads the parameter, its
+gradient and moments once and writes the new three once, bit for bit the
+plain update's, and one launch a leaf sums the gradient's squares straight
+from its bf16 or float32 storage.  That sum is float32 like the plain
+``torch.sum(torch.square(x.float()))``, adds in another order (per-thread
+lanes, then a fixed tree; no atomics, the same bits every call) and so may
+differ from it in the last bits.  The step's clip, bias corrections and
+learning rate stay on the device, and nothing in the update reads a value back
+to the host.  Elsewhere (the CPU, a dry run's meta tensors) both are the plain
+version, and the update is element by element, so each leaf is updated in
+blocks of :data:`UPDATE_ELEMENTS` (the same bits as the whole leaf at once,
+with a block's float32 temporaries).  Placed leaves (DTensors) are updated on
+their local shards: a parameter, its gradient and its moments must share
 placements, the moments and the new parameters keep them, and the global norm
-is one value every rank holds.
+is one value every rank holds (each rank's local sum, then their sum).
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ import dataclasses
 import torch
 
 from repro_torch.checkpoint import tree as tree_lib
+from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.parallel.sharding import is_placed, replicated_like
 
 
@@ -38,8 +50,8 @@ class AdamWConfig:
     moment_dtype: str = "float32"  # float32 | bfloat16
 
 
-#: Elements of a leaf updated at a time: a step's float32 temporaries are a few blocks
-#: of this size (256 MB each), not a few copies of the biggest leaf.
+#: Elements of a leaf updated at a time off the card: a step's float32 temporaries are a
+#: few blocks of this size (256 MB each), not a few copies of the biggest leaf.
 UPDATE_ELEMENTS = 1 << 26
 
 
@@ -65,13 +77,29 @@ def opt_state_axes(param_axes) -> dict:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares (a
     placed leaf's whole sum, a plain tensor)."""
-    sums = [torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)]
-    sums = [s.full_tensor() if is_placed(s) else s for s in sums]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    return torch.sqrt(torch.sum(torch.stack([_sum_of_squares(x) for x in tree_lib.leaves(tree)])))
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+def _sum_of_squares(x) -> torch.Tensor:
+    """A leaf's float32 sum of squares; a placed leaf's is its local shard's
+    summed over the mesh axes it is split on (a plain tensor)."""
+    if not is_placed(x):
+        return adamw_ops.sum_of_squares(x)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"a gradient placed {x.placements}: its squares cannot be summed shard by shard")
+    local = adamw_ops.sum_of_squares(x.to_local())
+    placements = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+    return DTensor.from_local(local, x.device_mesh, placements, run_check=False).full_tensor()
+
+
+def _f32(x, device) -> torch.Tensor:
+    """``x`` as a float32 scalar tensor on ``device``; a Python number is
+    filled in there (no copy from the host, so no wait for the device)."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 @torch.no_grad()
@@ -89,40 +117,27 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
     stepf = step_local.to(torch.float32)
     b1c = 1.0 - torch.pow(_f32(cfg.b1, dev), stepf)
     b2c = 1.0 - torch.pow(_f32(cfg.b2, dev), stepf)
-    lr = torch.as_tensor(cfg.lr * lr_scale, dtype=torch.float32, device=dev)
+    lr = _f32(cfg.lr * lr_scale, dev)
+    step_scalars = torch.stack([clip, b1c, b2c, lr])
     # JAX's weak-typed Python constants enter its float32 arithmetic as float32
-    b1, b2 = _f32(cfg.b1, dev), _f32(cfg.b2, dev)
-    one_b1, one_b2 = _f32(1 - cfg.b1, dev), _f32(1 - cfg.b2, dev)
-    eps, wd = _f32(cfg.eps, dev), _f32(cfg.weight_decay, dev)
-
-    def upd_block(p, g, mu, nu):
-        # the JAX expression tree, with the in-place operations on temporaries
-        # only (each rounds exactly as its out-of-place form); the inputs are
-        # left as they are
-        g = g.float() * clip
-        mu32 = (b1 * mu.float()).add_(one_b1 * g)
-        nu32 = (b2 * nu.float()).add_((one_b2 * g).mul_(g))
-        del g
-        delta = (mu32 / b1c).div_(torch.sqrt(nu32 / b2c).add_(eps)).add_(wd * p.float())
-        new_p = p.float() - delta.mul_(lr)  # p.float() is p itself for a float32 p: no in-place here
-        return new_p.to(p.dtype), mu32.to(mu.dtype), nu32.to(nu.dtype)
+    consts = (cfg.b1, cfg.b2, 1 - cfg.b1, 1 - cfg.b2, cfg.eps, cfg.weight_decay)
 
     def upd(p, g, mu, nu):
-        # element by element, so a leaf goes in blocks of UPDATE_ELEMENTS (the same bits), and a
-        # placed leaf on its local shards (the four share placements)
+        # a placed leaf on its local shards (the four share placements); on the card one kernel
+        # launch a leaf, elsewhere the plain update in blocks of UPDATE_ELEMENTS (the same bits)
         placed = is_placed(p)
         if placed and not tuple(p.placements) == tuple(g.placements) == tuple(mu.placements) == tuple(
                 nu.placements):
             raise ValueError(f"placements differ: parameter {p.placements}, gradient {g.placements}, "
                              f"moments {mu.placements} / {nu.placements}")
         local = [x.to_local() if placed else x for x in (p, g, mu, nu)]
-        if local[0].numel() <= UPDATE_ELEMENTS:  # one block: its results are the outputs
-            outs = upd_block(*local)
+        if local[0].device.type == "cuda" or local[0].numel() <= UPDATE_ELEMENTS:  # one call: its outputs
+            outs = adamw_ops.update(*local, step_scalars, consts)
         else:
             outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (local[0], local[2], local[3])]
             flat = [x.reshape(-1) for x in local]
             for i in range(0, flat[0].numel(), UPDATE_ELEMENTS):
-                block = upd_block(*(x[i:i + UPDATE_ELEMENTS] for x in flat))
+                block = adamw_ref.upd_block(*(x[i:i + UPDATE_ELEMENTS] for x in flat), step_scalars, consts)
                 for o, b in zip(outs, block):
                     o.view(-1)[i:i + UPDATE_ELEMENTS].copy_(b)
         if placed:

@@ -200,6 +200,21 @@ def test_codec_bound_and_cases(smoke):
     assert "ckpt_codec" in smoke.kernel_wrappers()
 
 
+def test_adamw_phase_constants_inputs_and_row(smoke):
+    from repro_torch.optim import AdamWConfig
+
+    cfg = AdamWConfig(lr=1e-4, moment_dtype="float32")  # the training phase's
+    assert smoke.ADAMW_CONSTS == (cfg.b1, cfg.b2, 1 - cfg.b1, 1 - cfg.b2, cfg.eps, cfg.weight_decay)
+    p = torch.randn(1000).bfloat16()
+    g, mu, nu, step = smoke.adamw_inputs(p, torch.float32, seed=3)
+    assert (g.dtype, mu.dtype, nu.dtype, step.shape) == (torch.bfloat16, torch.float32, torch.float32, (4,))
+    assert bool((nu >= 0).all()) and float(torch.linalg.vector_norm(g.float() * step[0])) == pytest.approx(1.0)
+    assert float(step[1]) == pytest.approx(1 - 0.9**3) and float(step[2]) == pytest.approx(1 - 0.95**3)
+    row = smoke.adamw_row({"ms": 2.0, "bound_ms": 1.0}, {"training": 63, "campaign": 42, "mesh": 84})
+    assert row["name"] == "adamw" and row["replaces"] is None and row["launches"] == 189
+    assert row["source"] == "src/repro_torch/kernels/adamw/csrc/adamw.cu" and "adamw" in smoke.kernel_wrappers()
+
+
 def test_training_config_is_glm4_at_its_published_widths(smoke):
     from repro_torch.checkpoint import tree as tree_lib
     from repro_torch.checkpoint.manager import quantized

@@ -12,7 +12,12 @@ plain version bit for bit (q and scales; NaN scales where the plain version's
 are NaN), and gradients through the model kernels' autograd Functions must
 equal the plain path's where their backward recomputes the plain version
 (float32); the attention's backward kernel (bf16) is held to
-``ref.attention_backward`` within ``BACKWARD_TOL`` and to its own bits.  Run
+``ref.attention_backward`` within ``BACKWARD_TOL`` and to its own bits.  The
+AdamW update kernel must equal the plain ``upd_block`` bit for bit for every
+pairing of parameter and moment dtypes, and its sum of squares lie within
+1e-6 of ``torch.sum``'s (another order of the same float32 additions) and
+repeat its own bits; ``adamw_update`` on the card launches one update and one
+sum a leaf and never waits on the device.  Run
 them on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -30,6 +35,8 @@ from repro_torch.core.schemes import Scheme
 from repro_torch.engine import ALL_SCHEMES, BID_LIMITED_SCHEMES, COMPARED, Scenario, TorchEngine
 from repro_torch.engine.batch import grid_and_tables
 from repro_torch.kernels import _build
+from repro_torch.kernels.adamw import kernel as adamw_kernel
+from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rglru_scan import kernel as rglru
@@ -535,6 +542,136 @@ def test_ckpt_codec_rejects_bad_inputs(cuda):
         codec.prepare(torch.zeros(1024, device=cuda)[1:])
     with pytest.raises(ValueError, match="empty"):
         codec.prepare(torch.zeros(0, device=cuda))
+
+
+# AdamW's hyperparameters as adamw_update hands them to the kernel: (b1, b2, 1 - b1, 1 - b2, eps, wd)
+ADAMW_CONSTS = (0.9, 0.95, 1 - 0.9, 1 - 0.95, 1e-8, 0.1)
+ADAMW_PAIRS = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+               (torch.float32, torch.bfloat16)]
+ADAMW_PAIR_IDS = ["bf16_f32", "bf16_bf16", "f32_f32", "f32_bf16"]
+
+
+def adamw_leaf(n, pdt, mdt, device, seed, offset=0):
+    """p, g, mu, nu of one leaf of n elements (views ``offset`` elements into their storage), with
+    moments of a few steps' size, and the step's [clip, b1c, b2c, lr] for grad_clip 1.0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda scale, dt: (torch.randn(n + offset, generator=gen, device=device) * scale).to(dt)[offset:]  # noqa: E731
+    p, g, mu = r(1.0, pdt), r(3.0, pdt), r(0.01, mdt)
+    nu = (torch.rand(n + offset, generator=gen, device=device) * 1e-4).to(mdt)[offset:]
+    one = torch.ones((), device=device)
+    norm = torch.maximum(adamw_ref.sum_of_squares(g).sqrt(), torch.full((), 1e-9, device=device))
+    clip = torch.minimum(one, one / norm)
+    stepf = torch.full((), 3.0, device=device)
+    b1c, b2c = 1.0 - torch.pow(torch.full((), 0.9, device=device), stepf), 1.0 - torch.pow(
+        torch.full((), 0.95, device=device), stepf)
+    return (p, g, mu, nu), torch.stack([clip, b1c, b2c, torch.full((), 1e-3, device=device)])
+
+
+def assert_adamw_bitwise(leaf, step):
+    before = [x.clone() for x in leaf]
+    launched = adamw_kernel.launches
+    got = adamw_kernel.update(*leaf, step, ADAMW_CONSTS)
+    want = adamw_ref.upd_block(*leaf, step, ADAMW_CONSTS)
+    torch.cuda.synchronize()
+    assert adamw_kernel.launches == launched + 1
+    for x, y, kept in zip(got, want, (leaf[0], leaf[2], leaf[3])):
+        assert x.dtype == y.dtype == kept.dtype and x.shape == y.shape == kept.shape
+        assert torch.equal(x, y)
+    assert all(torch.equal(x, b) for x, b in zip(leaf, before))  # the inputs are left as they are
+
+
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+@pytest.mark.parametrize("n", [1, 7, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("pair", ADAMW_PAIRS, ids=ADAMW_PAIR_IDS)
+def test_adamw_update_matches_plain_version_bitwise(cuda, pair, n, grad_clip):
+    leaf, step = adamw_leaf(n, *pair, cuda, seed=n)
+    if not grad_clip:
+        step[0] = 1.0
+    assert_adamw_bitwise(leaf, step)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("pair", ADAMW_PAIRS, ids=ADAMW_PAIR_IDS)
+def test_adamw_update_of_a_view_at_an_odd_offset(cuda, pair, offset):
+    leaf, step = adamw_leaf(4097, *pair, cuda, seed=offset, offset=offset)
+    assert all(x.storage_offset() == offset for x in leaf)
+    assert_adamw_bitwise(leaf, step)
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("n", [1, 7, 4097, (1 << 20) + 3, (1 << 26) + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_adamw_sum_of_squares_matches_torch_sum(cuda, dtype, n, offset):
+    gen = torch.Generator(device=cuda).manual_seed(n + offset)
+    x = (torch.randn(n + offset, generator=gen, device=cuda) * 3).to(dtype)[offset:]
+    launched = adamw_kernel.sumsq_launches
+    got = adamw_kernel.sum_of_squares(x)
+    again = adamw_kernel.sum_of_squares(x)
+    want = torch.sum(torch.square(x.float()))
+    torch.cuda.synchronize()
+    assert adamw_kernel.sumsq_launches == launched + 2
+    assert got.shape == () and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_adamw_wrappers_reject_bad_inputs(cuda):
+    (p, g, mu, nu), step = adamw_leaf(64, torch.bfloat16, torch.float32, cuda, seed=1)
+    with pytest.raises(TypeError, match="parameter's"):
+        adamw_kernel.prepare(p, g.float(), mu, nu, step, ADAMW_CONSTS)
+    with pytest.raises(TypeError, match="mu's"):
+        adamw_kernel.prepare(p, g, mu, nu.bfloat16(), step, ADAMW_CONSTS)
+    with pytest.raises(TypeError, match="dtype"):
+        adamw_kernel.prepare(p.half(), g.half(), mu, nu, step, ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_kernel.prepare(*(x.view(8, 8).t() for x in (p, g, mu, nu)), step, ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="is on cpu"):
+        adamw_kernel.prepare(p, g.cpu(), mu, nu, step, ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        adamw_kernel.prepare(p.cpu(), g, mu, nu, step, ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="elements"):
+        adamw_kernel.prepare(p, g, mu[:32], nu, step, ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="step"):
+        adamw_kernel.prepare(p, g, mu, nu, step[:3], ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="empty"):
+        adamw_kernel.prepare(p[:0], g[:0], mu[:0], nu[:0], step, ADAMW_CONSTS)
+    with pytest.raises(TypeError, match="dtype"):
+        adamw_kernel.sum_of_squares(g.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_kernel.sum_of_squares(g.view(8, 8).t())
+    with pytest.raises(ValueError, match="runs on cuda"):
+        adamw_kernel.sum_of_squares(g.cpu())
+    with pytest.raises(ValueError, match="empty"):
+        adamw_kernel.sum_of_squares(g[:0])
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_update_on_the_card_launches_a_kernel_a_leaf_and_never_syncs(cuda, moment_dtype):
+    from repro_torch.checkpoint import tree as tree_lib
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    params = {"w": torch.randn((300, 70), generator=gen, device=cuda).bfloat16(),
+              "b": torch.randn(5000, generator=gen, device=cuda), "s": torch.randn((), generator=gen, device=cuda)}
+    cfg = AdamWConfig(lr=1e-2, moment_dtype=moment_dtype)
+    state = adamw_init(params, cfg)
+    leaves, treedef = tree_lib.flatten((params, state))
+    cpu_params, cpu_state = treedef.unflatten([x.cpu() for x in leaves])
+    for i in range(3):
+        grads = {k: (torch.randn(v.shape, generator=gen, device=cuda) * 3).to(v.dtype) for k, v in params.items()}
+        launched, summed = adamw_kernel.launches, adamw_kernel.sumsq_launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, state, metrics = adamw_update(params, grads, state, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert adamw_kernel.launches == launched + 3 and adamw_kernel.sumsq_launches == summed + 3
+        cpu_grads = {k: v.cpu() for k, v in grads.items()}
+        cpu_params, cpu_state, cpu_metrics = adamw_update(cpu_params, cpu_grads, cpu_state, cfg)
+        torch.testing.assert_close(metrics["grad_norm"].cpu(), cpu_metrics["grad_norm"], rtol=1e-6, atol=0)
+    for x, y in zip(tree_lib.leaves((params, state)), tree_lib.leaves((cpu_params, cpu_state))):
+        torch.testing.assert_close(x.cpu(), y)  # the norm's last bits may move the clip, and a rounding
 
 
 def test_checkpoint_int8_quantizes_on_the_card(cuda, tmp_path):

@@ -310,6 +310,29 @@ def test_adamw_update_in_blocks_gives_the_whole_leafs_bits(moment_dtype, monkeyp
         assert x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
 
 
+@pytest.mark.parametrize("pair", [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.float32), (torch.float32, torch.bfloat16)],
+                         ids=["bf16_f32", "bf16_bf16", "f32_f32", "f32_bf16"])
+def test_adamw_ops_off_the_card_are_the_plain_versions(pair):
+    """On the CPU (and any device but the card) the AdamW ops run the plain
+    versions, and the kernel wrapper refuses the tensors."""
+    from repro_torch.kernels.adamw import kernel, ops, ref
+
+    pdt, mdt = pair
+    gen = torch.Generator().manual_seed(9)
+    p, g = torch.randn(301, generator=gen).to(pdt), (3 * torch.randn(301, generator=gen)).to(pdt)
+    mu, nu = (0.01 * torch.randn(301, generator=gen)).to(mdt), (1e-4 * torch.rand(301, generator=gen)).to(mdt)
+    step = torch.tensor([0.5, 0.271, 0.142625, 1e-3])
+    consts = (0.9, 0.95, 1 - 0.9, 1 - 0.95, 1e-8, 0.1)
+    for got, want in zip(ops.update(p, g, mu, nu, step, consts), ref.upd_block(p, g, mu, nu, step, consts)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(ops.sum_of_squares(g), torch.sum(torch.square(g.float())))
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernel.update(p, g, mu, nu, step, consts)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernel.sum_of_squares(g)
+
+
 @pytest.mark.parametrize("which", ["cosine", "warmup_cosine"])
 def test_schedules_match_jax(which):
     if which == "cosine":
