@@ -3,10 +3,10 @@
 :func:`quantize` takes a float32, bfloat16 or float16 tensor of any shape.  On
 a CUDA tensor it launches ``ckpt_codec_quantize_launch`` of
 ``csrc/ckpt_codec.cu`` (one warp per 256-element block; see the note at the
-top of the source) on the current stream, or raises; on a CPU tensor it runs
-the plain PyTorch version (:func:`repro_torch.kernels.ckpt_codec.ref.quantize`),
-because no kernel runs there.  Nothing falls back from the kernel to the plain
-version.
+top of the source) on the current stream, or raises, as it does on a tensor
+off the card: :mod:`repro_torch.kernels.ckpt_codec.ops` alone picks the kernel
+or the plain version (:func:`repro_torch.kernels.ckpt_codec.ref.quantize`),
+and nothing falls back from the kernel to it.
 
 :func:`quantize` is :func:`prepare` (input checks, output allocation)
 followed by :func:`launch` (the bare launch); :data:`launches` counts the
@@ -32,8 +32,6 @@ _ARGTYPES = [PTR] * 3 + [I64, I64, I32, PTR]
 
 def quantize(x: torch.Tensor, block: int = ref.BLOCK):
     """Returns ``(q (n_blocks, 256) int8, scales (n_blocks,) float32, shape)``."""
-    if x.device.type == "cpu":
-        return ref.quantize(x, block)
     return launch(prepare(x, block))
 
 

@@ -1,12 +1,13 @@
-"""Checkpoint codec op: CUDA tensors -> the kernel, CPU tensors or
-``impl="plain"`` -> the plain PyTorch version.
+"""Checkpoint codec op: CUDA tensors -> the kernel, tensors on any other
+device or ``impl="plain"`` -> the plain PyTorch version.
 
 ``quantize`` runs
 
   * on a CUDA tensor, the hand-written kernel
     (:func:`repro_torch.kernels.ckpt_codec.kernel.quantize`) -- it launches or
     raises;
-  * on a CPU tensor, the plain PyTorch version (:func:`ref.quantize`);
+  * on a tensor on any other device, the plain PyTorch version
+    (:func:`ref.quantize`);
   * with ``impl="plain"``, the plain version on whatever device the tensor is
     on (the yardstick the kernel is held to on the card).
 
@@ -23,7 +24,7 @@ BLOCK = ref.BLOCK
 
 def quantize(x, block: int = BLOCK, *, impl=None):
     check_impl(impl)
-    return (ref.quantize if impl == "plain" else kernel.quantize)(x, block)
+    return (kernel.quantize if impl is None and x.device.type == "cuda" else ref.quantize)(x, block)
 
 
 dequantize = ref.dequantize

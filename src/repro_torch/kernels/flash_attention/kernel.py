@@ -11,23 +11,23 @@ by TMA (tensor maps encoded at each launch) into a ring of stages, and two
 consumer warpgroups run ``wgmma`` products and the online softmax, with the
 next tile's Q K^T issued before the current tile's softmax.  bfloat16 at D =
 16 or 32 runs ``mma.sync`` tiles, float32 the FMA units; see the note at the
-top of the source.  On CPU
-tensors it runs the plain PyTorch version
-(:func:`repro_torch.kernels.flash_attention.ref.block_attention`), because no
-kernel runs there.  Nothing falls back from the kernel to the plain version.
+top of the source.  On a tensor off the card it raises:
+:mod:`repro_torch.kernels.flash_attention.ops` alone picks the kernel or the
+plain version (:func:`repro_torch.kernels.flash_attention.ref.block_attention`),
+and nothing falls back from the kernel to it.
 
 :func:`flash_attention` is :func:`prepare` (input checks, output allocation)
 followed by :func:`launch` (the bare launch); :data:`launches` counts the
 kernel's launches in this process.
 
-On CUDA the launch runs inside :class:`FlashAttention`, a
+The launch runs inside :class:`FlashAttention`, a
 ``torch.autograd.Function``.  Its backward is chosen by what the inputs show
 (:func:`backward_path`): bfloat16 CUDA tensors at D in
 :data:`BACKWARD_HEAD_DIMS` whose every query row sees a key take the
 hand-written backward kernel (``flash_attention_backward_launch``, from the
 forward's output and its log-sum-exp, which the forward writes only then);
-everything else (CPU tensors, float32, D = 16, 32 or 256, a row that sees no
-key) recomputes
+everything else (float32, D = 16, 32 or 256, a row that sees no key)
+recomputes
 :func:`~repro_torch.kernels.flash_attention.ref.block_attention` (with the
 forward's ``q_block`` / ``kv_block`` and mask arguments) and differentiates
 it.  Either way the kernel runs the forward.  :func:`prepare` raises when it
@@ -86,10 +86,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, q_block=1024,
     ``q_block`` / ``kv_block`` are the plain version's tiles; the kernel has
     its own.
     """
-    if q.device.type == "cpu":
-        return ref.block_attention(
-            q, k, v, causal=causal, window=window, q_block=q_block, kv_block=kv_block, q_offset=q_offset
-        )
     return FlashAttention.apply(q, k, v, causal, window, q_offset, q_block, kv_block)
 
 

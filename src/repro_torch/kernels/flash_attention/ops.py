@@ -5,7 +5,8 @@
   * on CUDA tensors, the hand-written kernel
     (:func:`repro_torch.kernels.flash_attention.kernel.flash_attention`) --
     it launches or raises;
-  * on CPU tensors, the plain PyTorch version (:func:`ref.block_attention`);
+  * on tensors on any other device, the plain PyTorch version
+    (:func:`ref.block_attention`);
   * with ``impl="plain"``, the plain version on whatever device the tensors
     are on (the yardstick the kernel is held to on the card);
   * on meta tensors (a dry run), shapes and the plain version's FLOPs
@@ -28,7 +29,8 @@ from repro_torch.parallel import sharding as S
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_block=1024, kv_block=1024, q_offset=0, impl=None):
     check_impl(impl)
-    fn = meta.flash_attention if meta.on_meta(q) else ref.block_attention if impl == "plain" else kernel.flash_attention
+    fn = (meta.flash_attention if meta.on_meta(q)
+          else kernel.flash_attention if impl is None and q.device.type == "cuda" else ref.block_attention)
     kw = dict(causal=causal, window=window, q_block=q_block, kv_block=kv_block, q_offset=q_offset)
     if S.is_placed(q):
         return on_local_heads(fn, q, k, v, **kw)

@@ -8,16 +8,17 @@ all of S in time chunks staged through shared memory by TMA: elementwise
 warps turn each chunk into (a, beta * x), one warp walks the chain h = a * h +
 beta * x, and h leaves by TMA stores.  Other widths take one thread per
 channel.  Both round every operation as the plain version does, so their
-outputs equal it bit for bit; see the note at the top of the source.  On CPU
-tensors it runs the plain PyTorch version
-(:func:`repro_torch.kernels.rglru_scan.ref.rglru_scan`).  Nothing falls back
-from the kernel to the plain version.  The scan starts from a zero state, as
-the TPU kernel does.
+outputs equal it bit for bit; see the note at the top of the source.  On a
+tensor off the card it raises: :mod:`repro_torch.kernels.rglru_scan.ops`
+alone picks the kernel or the plain version
+(:func:`repro_torch.kernels.rglru_scan.ref.rglru_scan`), and nothing falls
+back from the kernel to it.  The scan starts from a zero state, as the TPU
+kernel does.
 
 :func:`rglru_scan` is :func:`prepare` followed by :func:`launch`;
 :data:`launches` counts the kernel's launches in this process.
 
-On CUDA the launch runs inside :class:`RGLRUScan`, a
+The launch runs inside :class:`RGLRUScan`, a
 ``torch.autograd.Function`` whose backward recomputes
 :func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan` and differentiates it.
 This is no fallback: the kernel always runs the forward.  :func:`prepare`
@@ -42,8 +43,6 @@ _ARGTYPES = [PTR] * 4 + [I64] * 3 + [PTR]
 
 def rglru_scan(log_a, gated_x):
     """Returns h ``(B, S, W)`` and h_last ``(B, W)``, both float32."""
-    if log_a.device.type == "cpu":
-        return ref.rglru_scan(log_a, gated_x)
     return RGLRUScan.apply(log_a, gated_x)
 
 

@@ -1,5 +1,5 @@
-"""RG-LRU scan op of the recurrent blocks: CUDA tensors -> the kernel, CPU
-tensors or ``impl="plain"`` -> the plain PyTorch version; DTensors -> the
+"""RG-LRU scan op of the recurrent blocks: CUDA tensors -> the kernel, tensors
+on any other device or ``impl="plain"`` -> the plain PyTorch version; DTensors -> the
 same on each rank's local rows and ``rnn`` columns (``local_map``: the
 recurrence runs along the sequence, which stays whole); meta tensors ->
 shapes and the plain version's FLOPs (:mod:`repro_torch.kernels.meta`).  The
@@ -14,7 +14,8 @@ from repro_torch.parallel import sharding as S
 
 def rglru_scan(log_a, gated_x, *, impl=None):
     check_impl(impl)
-    fn = meta.rglru_scan_shapes if meta.on_meta(log_a) else ref.rglru_scan if impl == "plain" else kernel.rglru_scan
+    fn = (meta.rglru_scan_shapes if meta.on_meta(log_a)
+          else kernel.rglru_scan if impl is None and log_a.device.type == "cuda" else ref.rglru_scan)
     if not S.is_placed(log_a):
         return fn(log_a, gated_x)
     from torch.distributed.tensor import Shard

@@ -3,10 +3,10 @@
 :func:`spot_sweep` takes the padded ``(cells, periods)`` grid as tensors.
 On a CUDA tensor it launches ``spot_sweep_launch`` of ``csrc/spot_sweep.cu``
 (one thread per (scheme, cell); see the note at the top of the source) on
-the current stream, or raises; on a CPU tensor it runs the plain PyTorch
-version (:func:`repro_torch.kernels.spot_sweep.ref.sweep_plain`), because
-no kernel runs there.  Nothing falls back from the kernel to the plain
-version.
+the current stream, or raises, as it does on a tensor off the card:
+:mod:`repro_torch.kernels.spot_sweep.ops` alone picks the kernel or the plain
+version (:func:`repro_torch.kernels.spot_sweep.ref.sweep_plain`), and nothing
+falls back from the kernel to it.
 
 :func:`spot_sweep` is :func:`prepare` (input checks, scheme codes, output
 allocation) followed by :func:`launch` (the bare kernel launch), so a caller
@@ -24,7 +24,6 @@ import torch
 
 from repro_torch.core.schemes import Scheme
 from repro_torch.kernels._launch import F64, I64, PTR, Launch, c_function, call, check, require_cuda, stream
-from repro_torch.kernels.spot_sweep import ref
 
 #: Kernel launches in this process (incremented once per launch, nowhere else).
 launches = 0
@@ -55,8 +54,6 @@ def spot_sweep(schemes, A, B, valid, horizon, consts, ptr0=None, edges=None, tab
     comp_time, n_ckpt, work_lost, n_kills)`` shaped ``(S, C)`` and
     ``(rec_exists, rec_end, rec_user)`` shaped ``(S, C, P)``.
     """
-    if A.device.type == "cpu":
-        return ref.sweep_plain(schemes, A, B, valid, horizon, consts, ptr0, edges, tables)
     return launch(prepare(schemes, A, B, valid, horizon, consts, ptr0, edges, tables))
 
 

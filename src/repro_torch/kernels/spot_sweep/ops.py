@@ -8,7 +8,7 @@ device and returns the per-scheme output dicts of
   * on a CUDA device, the hand-written kernel
     (:func:`repro_torch.kernels.spot_sweep.kernel.spot_sweep`) — it launches
     or raises;
-  * on the CPU, the plain PyTorch version
+  * on any other device, the plain PyTorch version
     (:func:`repro_torch.kernels.spot_sweep.ref.sweep_plain`);
   * with ``impl="plain"``, the plain version on whatever device was asked
     for (the yardstick the kernel is held to on the card).
@@ -117,7 +117,7 @@ def spot_sweep_grid(schemes, grid, scenario, adapt_tables=None, device=None, imp
 
     need_edge = Scheme.EDGE in schemes
     need_adapt = Scheme.ADAPT in schemes
-    sweep = ref.sweep_plain if impl == "plain" else kernel.spot_sweep
+    sweep = kernel.spot_sweep if label == "cuda" else ref.sweep_plain
 
     with tel.span("sim", impl=label):
         arrs = device_arrays(grid, dev, need_edge, need_adapt, params.t_r, adapt_tables)

@@ -1,17 +1,18 @@
 """Launch wrapper of the hand-written CUDA Mamba-1 selective-scan kernel.
 
 :func:`ssm_scan` takes dtA, dBx ``(B, S, D, N)`` float32 and C ``(B, S, N)``.
-On CUDA tensors it launches ``ssm_scan_launch`` of ``csrc/ssm_scan.cu`` (one
-lane per (b, d, n); see the note at the top of the source) on the current
-stream, or raises; on CPU tensors it runs the plain PyTorch version
-(:func:`repro_torch.kernels.ssm_scan.ref.ssm_scan`).  Nothing falls back from
-the kernel to the plain version.  The scan starts from a zero state, as the
-TPU kernel does.
+It launches ``ssm_scan_launch`` of ``csrc/ssm_scan.cu`` (one lane per (b, d,
+n); see the note at the top of the source) on the current stream, or raises,
+as it does on a tensor off the card: :mod:`repro_torch.kernels.ssm_scan.ops`
+alone picks the kernel or the plain version
+(:func:`repro_torch.kernels.ssm_scan.ref.ssm_scan`), and nothing falls back
+from the kernel to it.  The scan starts from a zero state, as the TPU kernel
+does.
 
 :func:`ssm_scan` is :func:`prepare` followed by :func:`launch`;
 :data:`launches` counts the kernel's launches in this process.
 
-On CUDA the launch runs inside :class:`SSMScan`, a ``torch.autograd.Function``
+The launch runs inside :class:`SSMScan`, a ``torch.autograd.Function``
 whose backward recomputes :func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan`
 and differentiates it.  This is no fallback: the kernel always runs the
 forward.  :func:`prepare` raises when it is reached outside the Function with
@@ -41,8 +42,6 @@ _ARGTYPES = [PTR] * 5 + [I64] * 5 + [PTR]
 
 def ssm_scan(dtA, dBx, C):
     """Returns y ``(B, S, D)`` and h_last ``(B, D, N)``, both float32."""
-    if dtA.device.type == "cpu":
-        return ref.ssm_scan(dtA, dBx, C)
     return SSMScan.apply(dtA, dBx, C)
 
 

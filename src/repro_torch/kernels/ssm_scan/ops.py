@@ -1,5 +1,5 @@
-"""SSM scan op of the Mamba blocks: CUDA tensors -> the kernel, CPU tensors
-or ``impl="plain"`` -> the plain PyTorch version; DTensors -> the same on
+"""SSM scan op of the Mamba blocks: CUDA tensors -> the kernel, tensors on
+any other device or ``impl="plain"`` -> the plain PyTorch version; DTensors -> the same on
 each rank's local rows and channels (``local_map``; C, which has no channel
 dimension, is whole on every rank, and its gradient is each rank's part of
 the sum over channels); meta tensors -> shapes and the plain version's
@@ -14,7 +14,8 @@ from repro_torch.parallel import sharding as S
 
 def ssm_scan(dtA, dBx, C, *, impl=None):
     check_impl(impl)
-    fn = meta.ssm_scan_shapes if meta.on_meta(dtA) else ref.ssm_scan if impl == "plain" else kernel.ssm_scan
+    fn = (meta.ssm_scan_shapes if meta.on_meta(dtA)
+          else kernel.ssm_scan if impl is None and dtA.device.type == "cuda" else ref.ssm_scan)
     if not S.is_placed(dtA):
         return fn(dtA, dBx, C)
     from torch.distributed.tensor import Partial, Replicate, Shard

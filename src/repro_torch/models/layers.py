@@ -15,6 +15,9 @@ the placements of its logical axes.  What the layers make themselves
 
 from __future__ import annotations
 
+from collections.abc import Callable
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -256,9 +259,16 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, devi
 
 def fill_attention_cache(cache: dict, k, v) -> None:
     """Writes a prompt's keys / values ``(B, S, KV, Dh)`` (positions ``[0,
-    S)``) into a cache that is not circular: its slots ``[0, S)``, or the
-    positions that fall in this rank's sequence slice."""
+    S)``) into a cache: its slots ``[0, S)``, or the positions that fall in
+    this rank's sequence slice; a window cache shorter than the prompt keeps
+    the last positions, position p at slot ``p % slots`` (decode's circular
+    indexing; a sequence slice is never circular)."""
     s = k.shape[1]
+    slots = cache["k"].shape[1]
+    if slots < s and "seq_len" not in cache:
+        cache["k"], cache["v"] = (_window_tail(t, slots, s, cache["k"].dtype) for t in (k, v))
+        cache["len"] = s
+        return
     if is_placed(cache["k"]):  # each rank writes the positions in its shard (a cache split along its slots too)
         update_slice(cache["k"], k, 0)
         update_slice(cache["v"], v, 0)
@@ -275,12 +285,90 @@ def fill_attention_cache(cache: dict, k, v) -> None:
     cache["len"] = s
 
 
+def _window_tail(k, slots: int, s: int, dtype):
+    """A window cache of ``slots`` slots from a prompt's keys / values ``(B,
+    S, KV, D)``: the last ``slots`` positions, position p at slot ``p %
+    slots`` (placed: on each rank's rows and heads, the sequence whole)."""
+    def tail(t):
+        return torch.roll(t[:, -slots:], s % slots, dims=1).to(dtype)
+
+    if not is_placed(k):
+        return tail(k)
+    k = keep_shards(k, (0, 2))
+    return local_call(tail, (k,), tuple(k.placements))
+
+
 def attention_cache_axes() -> dict:
     return {
         "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
         "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
         "len": (),
     }
+
+
+class Mixer(NamedTuple):
+    """What mixes a layer's positions, as its module gives it: five
+    operations of the same signatures for every mixer.
+
+    ``init(b, name, cfg)`` draws its parameters under ``name``;
+    ``apply(cfg, params, name, x, cache, *, q_block, kv_block, impl)`` runs it
+    over a whole normed sequence ``x (B, S, d)`` and returns ``(h, cache)``:
+    ``cache`` is the empty decode cache a prefill fills (None in a forward,
+    where attention returns None; a scan returns its own last state);
+    ``decode(cfg, params, name, x, cache)`` runs one token and returns ``(h,
+    new cache)``; ``init_cache(cfg, batch, max_len, dtype, device)`` makes an
+    empty cache for ``max_len`` positions; ``cache_axes()`` gives its
+    logical axes."""
+
+    init: Callable
+    apply: Callable
+    decode: Callable
+    init_cache: Callable
+    cache_axes: Callable
+
+
+def attention_mixer(*, causal: bool = True, local: bool = False) -> Mixer:
+    """Self-attention as a :class:`Mixer`: causal or bidirectional, over
+    every position or, ``local``, the last ``cfg.window``, whose cache holds
+    ``min(max_len, cfg.window)`` slots written circularly."""
+    def window(cfg: ModelConfig) -> int:
+        return cfg.window if local else 0
+
+    def apply(cfg: ModelConfig, params, name: str, x, cache, *, q_block, kv_block, impl):
+        h, (k, v) = apply_attention(cfg, params, name, x, causal=causal, window=window(cfg), q_block=q_block,
+                                    kv_block=kv_block, impl=impl)
+        if cache is not None:
+            fill_attention_cache(cache, k, v)
+        return h, cache
+
+    def decode(cfg: ModelConfig, params, name: str, x, cache):
+        return apply_attention_decode(cfg, params, name, x, cache, window=window(cfg))
+
+    def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+        w = window(cfg)
+        return init_attention_cache(cfg, batch, min(max_len, w) if w else max_len, dtype, device, window=w)
+
+    return Mixer(init_attention, apply, decode, init_cache, attention_cache_axes)
+
+
+ATTENTION = attention_mixer()
+LOCAL_ATTENTION = attention_mixer(local=True)
+BIDIRECTIONAL_ATTENTION = attention_mixer(causal=False)
+
+
+def scan_mixer(init, prefill, decode, init_cache, cache_axes) -> Mixer:
+    """A recurrent scan as a :class:`Mixer`, from its module's functions:
+    ``prefill(cfg, params, name, x, *, impl)`` makes the decode cache itself
+    (the empty one and the attention's tiles it is handed go unused), and
+    ``init_cache(cfg, batch, dtype, device)``'s state does not grow with
+    ``max_len``."""
+    def apply(cfg: ModelConfig, params, name: str, x, cache, *, q_block, kv_block, impl):
+        return prefill(cfg, params, name, x, impl=impl)
+
+    def empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+        return init_cache(cfg, batch, dtype, device)
+
+    return Mixer(init, apply, decode, empty_cache, cache_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rglru_scan.ref import RG_LRU_C
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
 from repro_torch.models.ssm import causal_conv, conv_tail, softplus
@@ -81,3 +82,7 @@ def apply_rglru_decode(cfg: ModelConfig, params, name: str, x, cache):
     y = h[:, None, :].to(x.dtype) * F.silu(gate)
     out = y @ params[f"{name}.out_proj"]
     return out, {"conv": conv_state.to(cache["conv"].dtype), "h": h}
+
+
+#: The RG-LRU mixer of a recurrent layer.
+RGLRU = L.scan_mixer(init_rglru_block, apply_rglru_prefill, apply_rglru_decode, init_rglru_cache, rglru_cache_axes)

@@ -140,3 +140,6 @@ def apply_mamba_decode(cfg: ModelConfig, params, name: str, x, cache):
     out = y @ params[f"{name}.out_proj"]
     return out, {"conv": conv_state.to(cache["conv"].dtype), "h": h}
 
+
+#: The Mamba mixer of a layer.
+MAMBA = L.scan_mixer(init_mamba, apply_mamba_prefill, apply_mamba_decode, init_mamba_cache, mamba_cache_axes)

@@ -8,7 +8,13 @@ it with ``dense_residual``), ``encdec`` (whisper: an encoder over
 precomputed ``frames``, decoder layers with self- and cross-attention),
 ``hybrid`` (RG-LRU + local attention) and ``ssm`` (Mamba-1).  Layers are a
 list of per-layer param dicts applied in a Python loop, as there; an
-encoder-decoder keeps its encoder's layers in ``params["encoder"]``.
+encoder-decoder keeps its encoder's layers in ``params["encoder"]``.  What a
+layer of each kind is made of is one entry of :data:`KINDS`: its norm, its
+mixer (a :class:`~repro_torch.models.layers.Mixer`: the five operations of
+:mod:`~repro_torch.models.ssm`, :mod:`~repro_torch.models.rglru` or the
+attention of :mod:`~repro_torch.models.layers`, which alone knows its cache's
+layout) and its feed-forward; every loop over the layers calls what the
+entry names.
 
 The port adds a family the JAX package does not have: ``jamba`` (AI21's
 Jamba), whose layer ``i`` is of the kind ``block_pattern[i % len]``: one of
@@ -74,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.utils import checkpoint as activation_checkpoint
@@ -102,6 +109,40 @@ BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), "vision_ma
               "vision_embeds": ("batch", None, "embed"), "frames": ("batch", None, "embed")}
 
 
+class Kind(NamedTuple):
+    """What a layer of one kind is made of: ``x += mixer(norm(x))``; a
+    decoder's cross-attention over the encoder's output, ``x +=
+    cross_attn(norm_cross(x))``, whose keys / values its cache keeps beside
+    the mixer's (``{"self": ..., "cross_k": ..., "cross_v": ...}``); then the
+    feed-forward, ``x += ff(norm2(x))``."""
+
+    norm: str  # the mixer's norm
+    mixer: L.Mixer
+    name: str  # the mixer's parameters' prefix
+    ff: str | None  # None, "mlp", or "moe" (the experts, and the MLP beside them with cfg.dense_residual)
+    cross: bool = False
+
+
+#: Every kind :func:`layer_kinds` returns.
+KINDS = {
+    "mamba": Kind("norm", S.MAMBA, "mixer", None),
+    "rec": Kind("norm1", R.RGLRU, "mixer", "mlp"),
+    "attn": Kind("norm1", L.LOCAL_ATTENTION, "attn", "mlp"),
+    "dense": Kind("norm1", L.ATTENTION, "attn", "mlp"),
+    "encoder": Kind("norm1", L.BIDIRECTIONAL_ATTENTION, "attn", "mlp"),
+    "moe": Kind("norm1", L.ATTENTION, "attn", "moe"),
+    "decoder": Kind("norm1", L.ATTENTION, "self_attn", "mlp", cross=True),
+    "mamba_mlp": Kind("norm1", S.MAMBA, "mixer", "mlp"),
+    "mamba_moe": Kind("norm1", S.MAMBA, "mixer", "moe"),
+    "attn_mlp": Kind("norm1", L.ATTENTION, "attn", "mlp"),
+    "attn_moe": Kind("norm1", L.ATTENTION, "attn", "moe"),
+}
+#: The layers of an encoder-decoder's encoder (``params["encoder"]``).
+ENCODER = KINDS["encoder"]
+#: The logical axes of a decoder's cross-attention keys / values in its cache.
+CROSS_AXES = ("batch", None, "kv_heads", "head_dim")
+
+
 def layer_kinds(cfg: ModelConfig) -> list[str]:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
@@ -122,17 +163,13 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     return ["dense"] * cfg.n_layers  # dense | vlm
 
 
-def _window(cfg: ModelConfig, kind: str) -> int:
-    return cfg.window if (cfg.family == "hybrid" and kind == "attn") else 0
-
-
-def _is_moe(kind: str) -> bool:
-    return kind == "moe" or kind.endswith("_moe")
+def _layers(cfg: ModelConfig) -> list[Kind]:
+    return [KINDS[kind] for kind in layer_kinds(cfg)]
 
 
 def _has_moe(cfg: ModelConfig) -> bool:
     """Whether the model's loss adds the MoE layers' load-balance loss."""
-    return any(map(_is_moe, layer_kinds(cfg)))
+    return any(e.ff == "moe" for e in _layers(cfg))
 
 
 def place_batch(mesh, batch: dict) -> dict:
@@ -175,45 +212,18 @@ def _device(params: dict, device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(cfg: ModelConfig, kind: str, b: ParamBuilder) -> ParamBuilder:
-    if kind == "mamba":
-        L.init_norm(b, "norm", cfg)
-        S.init_mamba(b, "mixer", cfg)
-    elif kind == "rec":
-        L.init_norm(b, "norm1", cfg)
-        R.init_rglru_block(b, "mixer", cfg)
-        L.init_norm(b, "norm2", cfg)
-        L.init_mlp(b, "mlp", cfg)
-    elif kind == "moe":
-        L.init_norm(b, "norm1", cfg)
-        L.init_attention(b, "attn", cfg)
-        L.init_norm(b, "norm2", cfg)
-        M.init_moe(b, "moe", cfg)
-        if cfg.dense_residual:
-            L.init_mlp(b, "mlp", cfg)
-    elif kind in JAMBA_KINDS:
-        L.init_norm(b, "norm1", cfg)
-        if kind.startswith("mamba_"):
-            S.init_mamba(b, "mixer", cfg)
-        else:
-            L.init_attention(b, "attn", cfg)
-        L.init_norm(b, "norm2", cfg)
-        if _is_moe(kind):
-            M.init_moe(b, "moe", cfg)
-        else:
-            L.init_mlp(b, "mlp", cfg)
-    elif kind == "decoder":
-        L.init_norm(b, "norm1", cfg)
-        L.init_attention(b, "self_attn", cfg)
+def _init_layer(cfg: ModelConfig, e: Kind, b: ParamBuilder) -> ParamBuilder:
+    L.init_norm(b, e.norm, cfg)
+    e.mixer.init(b, e.name, cfg)
+    if e.cross:
         L.init_norm(b, "norm_cross", cfg)
         L.init_attention(b, "cross_attn", cfg)
+    if e.ff:
         L.init_norm(b, "norm2", cfg)
-        L.init_mlp(b, "mlp", cfg)
-    else:  # dense | attn | encoder
-        L.init_norm(b, "norm1", cfg)
-        L.init_attention(b, "attn", cfg)
-        L.init_norm(b, "norm2", cfg)
-        L.init_mlp(b, "mlp", cfg)
+        if e.ff == "moe":
+            M.init_moe(b, "moe", cfg)
+        if e.ff == "mlp" or cfg.dense_residual:
+            L.init_mlp(b, "mlp", cfg)
     return b
 
 
@@ -238,7 +248,7 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 
 def _init(cfg: ModelConfig, seed: int, device) -> tuple[dict, dict]:
-    kinds = layer_kinds(cfg)
+    kinds = _layers(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     # the JAX package's keys: split(PRNGKey(seed), n_layers + 3) -> embeddings, each layer, ..., the encoder
     keys = [None] * (cfg.n_layers + 3) if dev.type == "meta" else threefry.split(threefry.prng_key(seed),
@@ -248,11 +258,11 @@ def _init(cfg: ModelConfig, seed: int, device) -> tuple[dict, dict]:
     L.init_embedding(eb, cfg)
     L.init_norm(eb, "final_norm", cfg)
     params, axes = dict(eb.params), dict(eb.axes)
-    layers = [_init_layer(cfg, kind, ParamBuilder(keys[i + 1], dev, dtype)) for i, kind in enumerate(kinds)]
+    layers = [_init_layer(cfg, e, ParamBuilder(keys[i + 1], dev, dtype)) for i, e in enumerate(kinds)]
     params["layers"], axes["layers"] = [b.params for b in layers], [b.axes for b in layers]
     if cfg.family == "encdec":
         enc_keys = [None] * cfg.encoder_layers if dev.type == "meta" else threefry.split(keys[-1], cfg.encoder_layers)
-        enc = [_init_layer(cfg, "encoder", ParamBuilder(k, dev, dtype)) for k in enc_keys]
+        enc = [_init_layer(cfg, ENCODER, ParamBuilder(k, dev, dtype)) for k in enc_keys]
         params["encoder"], axes["encoder"] = [b.params for b in enc], [b.axes for b in enc]
         nb = ParamBuilder(keys[-2], dev, dtype)
         L.init_norm(nb, "encoder_norm", cfg)
@@ -285,50 +295,43 @@ def _fsdp_gather(p: dict) -> dict:
     return out
 
 
-def _apply_layer(cfg: ModelConfig, kind: str, p: dict, x, *, memory=None, q_block, kv_block, impl, moe_span=None):
-    """One layer over the whole sequence.  Returns ``(x, state, aux)``: the
-    mixer's decode cache (Mamba / RG-LRU), the attention's ``(k, v)`` (a
-    decoder adds its cross-attention's ``(k, v)`` over ``memory``, the
-    encoder's output), and a MoE layer's aux (else None).  Placed parameters
-    are gathered over the ``fsdp`` axes first (:func:`_fsdp_gather`).
+def _apply_layer(cfg: ModelConfig, e: Kind, p: dict, x, cache=None, *, memory=None, q_block, kv_block, impl,
+                 moe_span=None):
+    """One layer over the whole sequence.  Returns ``(x, cache, aux)``: the
+    layer's empty decode ``cache`` filled (a prefill; None in a forward: then
+    a scan's last state), and a MoE layer's aux (else None).  A decoder's
+    cross-attention runs over ``memory``, the encoder's output.  Placed
+    parameters are gathered over the ``fsdp`` axes first (:func:`_fsdp_gather`).
     ``moe_span``: the span a MoE layer's experts are recorded in."""
     if SH.is_placed(x):
         p = _fsdp_gather(p)
-    if kind == "mamba":
-        h, state = S.apply_mamba_prefill(cfg, p, "mixer", L.apply_norm(cfg, p, "norm", x), impl=impl)
-        return x + h, state, None
-    attn = dict(q_block=q_block, kv_block=kv_block, impl=impl)
-    if kind == "rec":
-        h, state = R.apply_rglru_prefill(cfg, p, "mixer", L.apply_norm(cfg, p, "norm1", x), impl=impl)
-    elif kind.startswith("mamba_"):
-        h, state = S.apply_mamba_prefill(cfg, p, "mixer", L.apply_norm(cfg, p, "norm1", x), impl=impl)
-    elif kind == "decoder":
-        h, state = L.apply_attention(cfg, p, "self_attn", L.apply_norm(cfg, p, "norm1", x), causal=True, **attn)
-        x = x + h
+    own = cache["self"] if e.cross and cache is not None else cache
+    h, own = e.mixer.apply(cfg, p, e.name, L.apply_norm(cfg, p, e.norm, x), own, q_block=q_block, kv_block=kv_block,
+                           impl=impl)
+    x = x + h
+    if e.cross:
         ck = L.project_heads(memory, p["cross_attn.wk"])
         cv = L.project_heads(memory, p["cross_attn.wv"])
-        h = _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), ck, cv)
-        state = (*state, ck, cv)
-    else:
-        h, state = L.apply_attention(
-            cfg, p, "attn", L.apply_norm(cfg, p, "norm1", x), causal=kind != "encoder", window=_window(cfg, kind),
-            **attn,
-        )
-    x, aux = _feed_forward(cfg, kind, p, x + h, span=moe_span)
-    return x, state, aux
+        x = x + _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), ck, cv)
+        if cache is not None:
+            own = {"self": own, "cross_k": ck.to(cache["cross_k"].dtype), "cross_v": cv.to(cache["cross_v"].dtype)}
+    aux = None
+    if e.ff:
+        x, aux = _feed_forward(cfg, e, p, x, span=moe_span)
+    return x, own, aux
 
 
 #: The mixture of experts of each ``moe_impl``.
 _MOE_IMPLS = {"dense": M.apply_moe, "ep": MEP.apply_moe_ep, "dropless": M.apply_moe_dropless}
 
 
-def _feed_forward(cfg: ModelConfig, kind: str, p: dict, x, *, span=None):
-    """The layer's second half on the residual stream x: the MLP, or a MoE
+def _feed_forward(cfg: ModelConfig, e: Kind, p: dict, x, *, span=None):
+    """The layer's feed-forward on the residual stream x: the MLP, or a MoE
     layer's experts (plus the dense MLP beside them with ``dense_residual``),
     recorded in the span ``span`` when one is named.  Returns ``(x, the
     MoE's aux or None)``."""
     h = L.apply_norm(cfg, p, "norm2", x)
-    if not _is_moe(kind):
+    if e.ff == "mlp":
         return x + L.apply_mlp(cfg, p, "mlp", h), None
     with obs.current().span(span) if span else contextlib.nullcontext():
         y, aux = _MOE_IMPLS[cfg.moe_impl](cfg, p, "moe", h)
@@ -349,8 +352,8 @@ def _cross_attention(p: dict, name: str, x, k, v):
     return SH.shard(L.merge_heads(o, p[f"{name}.wo"]), "batch", "seq", "embed")
 
 
-def _layer_output(cfg: ModelConfig, kind: str, p: dict, x, memory, *, q_block, kv_block, impl):
-    x, _, aux = _apply_layer(cfg, kind, p, x, memory=memory, q_block=q_block, kv_block=kv_block, impl=impl)
+def _layer_output(cfg: ModelConfig, e: Kind, p: dict, x, memory, *, q_block, kv_block, impl):
+    x, _, aux = _apply_layer(cfg, e, p, x, memory=memory, q_block=q_block, kv_block=kv_block, impl=impl)
     return x, aux
 
 
@@ -390,7 +393,7 @@ def _encode(cfg: ModelConfig, params: dict, frames, dev, *, q_block, kv_block, i
     if cfg.learned_pos:
         x = x + params["embed.positions"][: x.shape[1]][None]
     for p in params["encoder"]:
-        x = _apply_layer(cfg, "encoder", p, x, q_block=q_block, kv_block=kv_block, impl=impl)[0]
+        x = _apply_layer(cfg, ENCODER, p, x, q_block=q_block, kv_block=kv_block, impl=impl)[0]
     return L.apply_norm(cfg, params, "encoder_norm", x)
 
 
@@ -410,12 +413,12 @@ def _forward_layers(cfg: ModelConfig, params: dict, batch: dict, dev, *, q_block
     kw = dict(q_block=q_block, kv_block=kv_block, impl=impl)
     x = _embed_inputs(cfg, params, batch, dev)
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
-    kinds = layer_kinds(cfg)
-    n_moe = max(1, sum(map(_is_moe, kinds)))
+    kinds = _layers(cfg)
+    n_moe = max(1, sum(e.ff == "moe" for e in kinds))
     aux = {name: SH.replicated_like(torch.zeros((), dtype=torch.float32, device=dev), x)
            for name in ("load_balance_loss", "drop_frac")}
-    for kind, p in zip(kinds, params["layers"]):
-        fn = functools.partial(_layer_output, cfg, kind, **kw)
+    for e, p in zip(kinds, params["layers"]):
+        fn = functools.partial(_layer_output, cfg, e, **kw)
         if remat:
             x, layer_aux = activation_checkpoint.checkpoint(fn, p, x, memory, use_reentrant=False)
         else:
@@ -510,12 +513,6 @@ def _label_logits(logits, labels):
 # ---------------------------------------------------------------------------
 
 
-def _attn_cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
-    if _window(cfg, kind):
-        return min(max_len, cfg.window)  # rolling window cache
-    return max_len
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None, mesh=None) -> dict:
     """An empty cache for ``batch`` requests of up to ``max_len`` tokens
     (``dtype``: the model's unless given).  With ``mesh`` (a ``DeviceMesh``)
@@ -533,39 +530,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device
         specs = SH.shard_params(mesh, cache_axes(cfg), abstract_tree=whole)
         return SH.tree_map_with(lambda x, pl: SH.zeros(x.shape, x.dtype, mesh, pl, dev)
                                 if isinstance(x, torch.Tensor) else x, whole, specs)
-    caches = []
-    for kind in layer_kinds(cfg):
-        if kind == "mamba" or kind.startswith("mamba_"):
-            caches.append(S.init_mamba_cache(cfg, batch, dtype, dev))
-        elif kind == "rec":
-            caches.append(R.init_rglru_cache(cfg, batch, dtype, dev))
-        elif kind == "decoder":
-            cross = (batch, cfg.encoder_positions, cfg.n_kv_heads, cfg.d_head)
-            caches.append({
-                "self": L.init_attention_cache(cfg, batch, max_len, dtype, dev),
-                "cross_k": torch.zeros(cross, dtype=dtype, device=dev),
-                "cross_v": torch.zeros(cross, dtype=dtype, device=dev),
-            })
-        else:
-            caches.append(L.init_attention_cache(cfg, batch, _attn_cache_len(cfg, kind, max_len), dtype, dev,
-                                                 window=_window(cfg, kind)))
-    return {"layers": caches, "len": 0}
+    return {"layers": [_layer_cache(cfg, e, batch, max_len, dtype, dev) for e in _layers(cfg)], "len": 0}
+
+
+def _layer_cache(cfg: ModelConfig, e: Kind, batch: int, max_len: int, dtype, dev):
+    cache = e.mixer.init_cache(cfg, batch, max_len, dtype, dev)
+    if not e.cross:
+        return cache
+    cross = (batch, cfg.encoder_positions, cfg.n_kv_heads, cfg.d_head)
+    return {"self": cache, "cross_k": torch.zeros(cross, dtype=dtype, device=dev),
+            "cross_v": torch.zeros(cross, dtype=dtype, device=dev)}
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
     """The logical-axes tree of :func:`init_cache`'s cache (the JAX package's
     ``cache_axes``)."""
-    caches = []
-    for kind in layer_kinds(cfg):
-        if kind == "mamba" or kind.startswith("mamba_"):
-            caches.append(S.mamba_cache_axes())
-        elif kind == "rec":
-            caches.append(R.rglru_cache_axes())
-        elif kind == "decoder":
-            cross = ("batch", None, "kv_heads", "head_dim")
-            caches.append({"self": L.attention_cache_axes(), "cross_k": cross, "cross_v": cross})
-        else:
-            caches.append(L.attention_cache_axes())
+    caches = [{"self": e.mixer.cache_axes(), "cross_k": CROSS_AXES, "cross_v": CROSS_AXES} if e.cross
+              else e.mixer.cache_axes() for e in _layers(cfg)]
     return {"layers": caches, "len": ()}
 
 
@@ -606,40 +587,12 @@ def _prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, dev, *, 
     cache = init_cache(cfg, x.shape[0], max_len, dtype, device=dev, mesh=mesh)
     memory = _encode(cfg, params, batch["frames"], dev, **kw) if cfg.family == "encdec" else None
     new_caches = []
-    for kind, p, lc in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
-        x, state, _ = _apply_layer(cfg, kind, p, x, memory=memory, moe_span="prefill.moe", **kw)
-        if isinstance(state, dict):  # a Mamba / RG-LRU mixer's conv tail and last state
-            new_caches.append(state)
-            continue
-        if kind == "decoder":
-            k, v, ck, cv = state
-            L.fill_attention_cache(lc["self"], k, v)
-            new_caches.append({"self": lc["self"], "cross_k": ck.to(dtype), "cross_v": cv.to(dtype)})
-            continue
-        k, v = state
-        clen = lc["k"].shape[1]
-        if clen < s and "seq_len" not in lc:  # a rolling window cache; a sequence slice is never circular
-            lc["k"], lc["v"] = (_window_tail(t, clen, s, dtype) for t in (k, v))
-            lc["len"] = s
-        else:
-            L.fill_attention_cache(lc, k, v)
+    for e, p, lc in zip(_layers(cfg), params["layers"], cache["layers"]):
+        x, lc, _ = _apply_layer(cfg, e, p, x, lc, memory=memory, moe_span="prefill.moe", **kw)
         new_caches.append(lc)
     x = L.apply_norm(cfg, params, "final_norm", x[:, -1:])
     cache = {"layers": new_caches, "len": s}
     return L.unembed(cfg, params, x), cache if mesh is None else _as_cache_axes(cfg, cache)
-
-
-def _window_tail(k, clen: int, s: int, dtype):
-    """A window cache of ``clen`` slots from a prompt's keys / values ``(B, S,
-    KV, D)``: the last ``clen`` positions, position p at slot ``p % clen``
-    (placed: on each rank's rows and heads, the sequence whole)."""
-    def tail(t):
-        return torch.roll(t[:, -clen:], s % clen, dims=1).to(dtype)
-
-    if not SH.is_placed(k):
-        return tail(k)
-    k = SH.keep_shards(k, (0, 2))
-    return SH.local_call(tail, (k,), tuple(k.placements))
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, device=None):
@@ -660,32 +613,20 @@ def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
     x = L.embed_tokens(cfg, params, tokens, position_offset=pos)
     new_caches = []
     tel = obs.current()
-    for kind, p, lc in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
+    for e, p, lc in zip(_layers(cfg), params["layers"], cache["layers"]):
         if SH.is_placed(x):
             p = _fsdp_gather(p)
-        if kind == "mamba":
-            xn = L.apply_norm(cfg, p, "norm", x)
-            with tel.span("decode.mixer"):
-                h, nc = S.apply_mamba_decode(cfg, p, "mixer", xn, lc)
-            new_caches.append(nc)
-            x = x + h
-            continue
-        xn = L.apply_norm(cfg, p, "norm1", x)
+        xn = L.apply_norm(cfg, p, e.norm, x)
         with tel.span("decode.mixer"):
-            if kind == "rec":
-                h, nc = R.apply_rglru_decode(cfg, p, "mixer", xn, lc)
-            elif kind.startswith("mamba_"):
-                h, nc = S.apply_mamba_decode(cfg, p, "mixer", xn, lc)
-            elif kind == "decoder":
-                h, sc = L.apply_attention_decode(cfg, p, "self_attn", xn, lc["self"])
-                nc = {"self": sc, "cross_k": lc["cross_k"], "cross_v": lc["cross_v"]}
-            else:
-                h, nc = L.apply_attention_decode(cfg, p, "attn", xn, lc, window=_window(cfg, kind))
-        if kind == "decoder":
-            x = x + h
-            h = _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), lc["cross_k"], lc["cross_v"])
+            h, nc = e.mixer.decode(cfg, p, e.name, xn, lc["self"] if e.cross else lc)
+        x = x + h
+        if e.cross:
+            x = x + _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), lc["cross_k"],
+                                     lc["cross_v"])
+            nc = {"self": nc, "cross_k": lc["cross_k"], "cross_v": lc["cross_v"]}
         new_caches.append(nc)
-        x = _feed_forward(cfg, kind, p, x + h, span="decode.moe")[0]
+        if e.ff:
+            x = _feed_forward(cfg, e, p, x, span="decode.moe")[0]
     logits = L.unembed(cfg, params, L.apply_norm(cfg, params, "final_norm", x))
     cache = {"layers": new_caches, "len": pos + 1}
     return logits, _as_cache_axes(cfg, cache) if SH.is_placed(logits) else cache

@@ -19,10 +19,9 @@ lanes, then a fixed tree; no atomics, the same bits every call) and so may
 differ from it in the last bits.  The step's clip, bias corrections and
 learning rate stay on the device, and nothing in the update reads a value back
 to the host.  Elsewhere (the CPU, a dry run's meta tensors) both are the plain
-version, and the update is element by element, so each leaf is updated in
-blocks of :data:`UPDATE_ELEMENTS` (the same bits as the whole leaf at once,
-with a block's float32 temporaries).  Placed leaves (DTensors) are updated on
-their local shards: a parameter, its gradient and its moments must share
+versions: :mod:`repro_torch.kernels.adamw.ops` picks, once a leaf.  Placed
+leaves (DTensors) are updated on their local shards: a parameter, its
+gradient and its moments must share
 placements, the moments and the new parameters keep them, and the global norm
 is one value every rank holds (each rank's local sum, then their sum).
 """
@@ -35,7 +34,6 @@ import torch
 
 from repro_torch.checkpoint import tree as tree_lib
 from repro_torch.kernels.adamw import ops as adamw_ops
-from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.parallel.sharding import is_placed, replicated_like
 
 
@@ -48,11 +46,6 @@ class AdamWConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     moment_dtype: str = "float32"  # float32 | bfloat16
-
-
-#: Elements of a leaf updated at a time off the card: a step's float32 temporaries are a
-#: few blocks of this size (256 MB each), not a few copies of the biggest leaf.
-UPDATE_ELEMENTS = 1 << 26
 
 
 def _map(fn, tree):
@@ -123,23 +116,13 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
     consts = (cfg.b1, cfg.b2, 1 - cfg.b1, 1 - cfg.b2, cfg.eps, cfg.weight_decay)
 
     def upd(p, g, mu, nu):
-        # a placed leaf on its local shards (the four share placements); on the card one kernel
-        # launch a leaf, elsewhere the plain update in blocks of UPDATE_ELEMENTS (the same bits)
+        # a placed leaf on its local shards (the four share placements)
         placed = is_placed(p)
         if placed and not tuple(p.placements) == tuple(g.placements) == tuple(mu.placements) == tuple(
                 nu.placements):
             raise ValueError(f"placements differ: parameter {p.placements}, gradient {g.placements}, "
                              f"moments {mu.placements} / {nu.placements}")
-        local = [x.to_local() if placed else x for x in (p, g, mu, nu)]
-        if local[0].device.type == "cuda" or local[0].numel() <= UPDATE_ELEMENTS:  # one call: its outputs
-            outs = adamw_ops.update(*local, step_scalars, consts)
-        else:
-            outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (local[0], local[2], local[3])]
-            flat = [x.reshape(-1) for x in local]
-            for i in range(0, flat[0].numel(), UPDATE_ELEMENTS):
-                block = adamw_ref.upd_block(*(x[i:i + UPDATE_ELEMENTS] for x in flat), step_scalars, consts)
-                for o, b in zip(outs, block):
-                    o.view(-1)[i:i + UPDATE_ELEMENTS].copy_(b)
+        outs = adamw_ops.update(*(x.to_local() if placed else x for x in (p, g, mu, nu)), step_scalars, consts)
         if placed:
             from torch.distributed.tensor import DTensor
 

@@ -65,12 +65,14 @@ def test_plain_against_tpu_kernel_interpret(shape, dtype):
 def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(3000).astype(np.float32))
     before = kernel.launches
-    q, s, shape = kernel.quantize(x)
+    q, s, shape = ops.quantize(x)
     q2, s2, _ = ref.quantize(x)
     assert kernel.launches == before
     assert torch.equal(q, q2) and torch.equal(s, s2) and shape == (3000,)
     with pytest.raises(ValueError, match="cuda"):
         kernel.prepare(x)
+    with pytest.raises(ValueError, match="cuda"):
+        kernel.quantize(x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])

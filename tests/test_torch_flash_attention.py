@@ -103,7 +103,7 @@ def test_ragged_length(causal):
     """S = 250 is no multiple of the 64-blocks: padded keys are masked and
     padded rows cut off."""
     q, k, v = qkv_np(2, 250, 2, 2, 64, np.float32, seed=2)
-    port = kernel.flash_attention(*to_torch(q, k, v), causal=causal, q_block=64, kv_block=64)
+    port = ops.flash_attention(*to_torch(q, k, v), causal=causal, q_block=64, kv_block=64)
     oracle = jax_naive_attention(q, k, v, causal=causal)
     np.testing.assert_allclose(as_f32(port), as_f32(oracle), atol=2e-6, rtol=2e-6)
     jax_ref = jax_block_attention(q, k, v, causal=causal, q_block=64, kv_block=64)
@@ -158,7 +158,9 @@ def test_kernel_prepare_refuses_cpu_tensors():
         kernel.prepare(tq, tk, tv)
     with pytest.raises(ValueError, match="runs on cuda"):
         kernel.backward_prepare(tq, tk, tv, tq, tq[..., 0].transpose(1, 2), tq)
-    kernel.flash_attention(tq, tk, tv)  # the plain version: no launch
+    ops.flash_attention(tq, tk, tv)  # the plain version: no launch
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernel.flash_attention(tq, tk, tv)
     assert kernel.launches == before
 
 

@@ -76,7 +76,7 @@ def test_ssm_matches_tpu_kernel_and_ref(shape):
 def test_ssm_bf16_readout():
     """C in bfloat16, as the bf16 models hand it over; both sides upcast it."""
     dtA, dBx, c = ssm_inputs(1, 64, 16, 4, c_dtype=ml_dtypes.bfloat16, seed=1)
-    y, _ = ssm_kernel.ssm_scan(t(dtA), t(dBx), t(c))
+    y, _ = ssm_ops.ssm_scan(t(dtA), t(dBx), t(c))
     y_k, _ = ssm_scan_tpu(jnp.asarray(dtA), jnp.asarray(dBx), jnp.asarray(c), chunk=32, interpret=True)
     close(y, y_k, 1e-4)
 
@@ -84,7 +84,7 @@ def test_ssm_bf16_readout():
 @pytest.mark.parametrize("shape", [(2, 77, 12, 16), (1, 5, 3, 2)])
 def test_ssm_ragged_length(shape):
     dtA, dBx, c = ssm_inputs(*shape, seed=2)
-    y, h = ssm_kernel.ssm_scan(t(dtA), t(dBx), t(c))
+    y, h = ssm_ops.ssm_scan(t(dtA), t(dBx), t(c))
     y_r, h_r = jax_ssm_scan(dtA, dBx, c)
     close(y, y_r, 1e-4)
     close(h, h_r, 1e-4)
@@ -118,7 +118,7 @@ def test_rglru_matches_tpu_kernel_and_ref(shape):
 
 def test_rglru_ragged_length():
     log_a, gx = rglru_inputs(2, 77, 48, seed=4)
-    h, last = rglru_kernel.rglru_scan(t(log_a), t(gx))
+    h, last = rglru_ops.rglru_scan(t(log_a), t(gx))
     h_r, last_r = jax_rglru_scan(log_a, gx)
     close(h, h_r, 1e-5)
     close(last, last_r, 1e-5)

@@ -141,8 +141,8 @@ def test_plain_sweep_states_and_records_match_traced_sweep(name):
 
 
 def test_kernel_wrapper_runs_plain_version_on_cpu_tensors():
-    """``kernel.spot_sweep`` on CPU tensors is the plain version (no kernel
-    runs on the CPU), and does not count as a launch."""
+    """On CPU tensors the op runs the plain version (no kernel runs on the
+    CPU) and counts no launch; the kernel wrapper itself refuses them."""
     from repro_torch.kernels.spot_sweep import kernel
 
     sc, grid, tables = port_grid(small_scenario())
@@ -152,11 +152,17 @@ def test_kernel_wrapper_runs_plain_version_on_cpu_tensors():
         ops.sweep_consts(sc, tables), arrs["ptr0"], arrs["edges"], arrs["tables"],
     )
     before = kernel.launches
-    got = kernel.spot_sweep(*args)
-    want = ref.sweep_plain(*args)
+    got, info = ops.spot_sweep_grid(sc.schemes, grid, sc, tables, device="cpu")
+    done, comp, ckpt, lost, kills = (x.numpy() for x in ref.sweep_plain(*args)[:5])
+    assert kernel.launches == before and info["impl"] == "plain"
+    for si, s in enumerate(sc.schemes):
+        np.testing.assert_array_equal(got[s]["completed"], done[si] & np.isfinite(comp[si]))
+        for field, want in (("completion_time", comp), ("n_checkpoints", ckpt), ("n_kills", kills),
+                            ("work_lost_s", lost)):
+            np.testing.assert_array_equal(got[s][field], want[si], err_msg=f"{s.value}.{field}")
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernel.spot_sweep(*args)
     assert kernel.launches == before
-    for g, w in zip(got, want):
-        assert torch.equal(g, w) or torch.allclose(g, w, rtol=0, atol=0, equal_nan=True)
 
 
 def test_kernel_prepare_refuses_cpu_tensors():

@@ -293,9 +293,10 @@ def test_bf16_moments_shapes_and_dtype():
 
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
 def test_adamw_update_in_blocks_gives_the_whole_leafs_bits(moment_dtype, monkeypatch):
-    """A leaf longer than ``UPDATE_ELEMENTS`` goes in blocks (the last one
-    ragged); a shorter one in one block, its results returned as they are."""
-    from repro_torch.optim import adamw
+    """A leaf longer than the plain update's ``UPDATE_ELEMENTS`` goes in
+    blocks (the last one ragged); a shorter one in one block, its results
+    returned as they are."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
 
     gen = torch.Generator().manual_seed(5)
     params = {"a": torch.randn((6, 5), generator=gen), "b": torch.randn(7, generator=gen).bfloat16(),
@@ -304,7 +305,7 @@ def test_adamw_update_in_blocks_gives_the_whole_leafs_bits(moment_dtype, monkeyp
     cfg = AdamWConfig(lr=0.01, moment_dtype=moment_dtype, weight_decay=0.05)
     state = adamw_init(params, cfg)
     whole = adamw_update(params, grads, state, cfg)[:2]
-    monkeypatch.setattr(adamw, "UPDATE_ELEMENTS", 7)  # a: 5 blocks; b: one whole block; c: one
+    monkeypatch.setattr(adamw_ops, "UPDATE_ELEMENTS", 7)  # a: 5 blocks; b: one whole block; c: one
     blocks = adamw_update(params, grads, state, cfg)[:2]
     for x, y in zip(tree_lib.leaves(blocks), tree_lib.leaves(whole)):
         assert x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
