@@ -93,14 +93,16 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``repro_torch.suite.run_suite`` into a temporary store on the card, twice;
    the second pass must be all cache hits with no ``serving.run`` span, and a
    deep ``verify`` clean.  Prints one ``{"suite": ...}`` line.
-10. Holds each model kernel (flash attention, RG-LRU scan, SSM scan) against
-   its plain PyTorch version on the card at small shapes: causal and
+10. Holds each model kernel (flash attention, RG-LRU scan, SSM scan, the SSM
+   scan's inputs) against its plain PyTorch version on the card at small
+   shapes: causal and
    bidirectional attention, windows (one off the kv tile, one past Sk),
    ``q_offset`` with Sk > Sq, lengths off every tile, GQA G in {1, 2, 3, 4, 6, 7,
    8, 9, 12, 16} (3, 6, 7, 9 and 12 divide no tile: 126 or 120 of its 128 rows),
    head dims 16-256 with kimi-k2's 112, float32 and bfloat16; scans of
    ragged lengths and widths on random inputs from a seed, the RG-LRU scan
-   bit for bit (``torch.equal``) on both of its bodies.
+   bit for bit (``torch.equal``) on both of its bodies; the scan inputs bit
+   for bit at every state size, ragged rows and channels, one position a row.
 11. Serves every architecture of ``repro_torch.configs`` at its full published
    widths (random weights from a seed, drawn on the card in the JAX package's
    ``jax.random`` stream, after a check that the card draws the CPU's words):
@@ -112,15 +114,19 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    4096 prompt tokens, prefill, then 16 greedy decode steps, through
    ``repro_torch.models.transformer``, after one untimed warm-up prefill.  The
    kernels' launch counts are reset just before the timed prefill and read just
-   after (``MODELS``: 40 flash; 12 flash + 26 RG-LRU; 64 SSM; 48, 30, 32, 24,
-   64 = 32 encoder + 32 decoder, 2 and 1 flash).  A MoE model's prefill runs
+   after (``MODELS``: 40 flash; 12 flash + 26 RG-LRU; 64 SSM + 64 scan-input;
+   48, 30, 32, 24, 64 = 32 encoder + 32 decoder, 2 and 1 flash); the decode
+   steps launch the scan-input kernel once a Mamba layer a step and nothing
+   else.  A MoE model's prefill runs
    twice more and must give the same bits (``torch.equal``).  The same requests
    then go through the plain versions on the card (``impl="plain"``) and the
    last-token logits are compared.  Each kernel is then held against its plain
    version (the RG-LRU scan bit for bit), and timed, on the full-width inputs
    of the first layer that called it (whisper: its encoder's and its decoder's
    attention), beside its bound and (attention)
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``.  The scan-input kernel is held bit for bit
+   and timed again at falcon-mamba-7b's layer of a 32,768-id batch
+   (``MAMBA_INPUTS_32K``), beside its bytes bound and the plain version.
    Prints one ``{"serving": ...}`` line per model.
 12. Holds the checkpoint codec kernel against its plain version on the card, bit
    for bit (``q`` and ``scales``): ragged sizes (1 to 1 M + 3 elements) in
@@ -192,7 +198,7 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    path timed at their sizes in the ranks; (b)
    one ``loss_fn`` and its gradient of falcon-mamba-7b (2 layers) and
    recurrentgemma-9b (3 layers) at published widths, 2 x 512 tokens, the
-   ``ssm_scan`` / ``rglru_scan`` / flash launches counted in each rank,
+   ``ssm_scan`` / ``mamba_inputs`` / ``rglru_scan`` / flash launches counted in each rank,
    against the single process; (c) ``repro_torch.launch.elastic_restart``'s
    two launches at (a)'s widths and depth, int8 checkpoint, 2 steps each: 2
    ranks on ``(2,)`` (rank 0 alone quantizes), then 4 on ``(2, 2)`` restoring
@@ -207,16 +213,17 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    tokens kept on the host; the ranks' decode fed its tokens): every step's
    logits within ``LOGITS_TOL`` of one process, the ranks' own greedy tokens
    compared and their agreement printed, the kernels' launches a prefill counted
-   in each rank and decode launching none, each kernel's first call of each shape
-   in every rank's prefill held against its plain version on the same local
-   shards (flash attention within ``ATTN_TOL``, the RG-LRU scan bit for bit, the
-   SSM scan within ``SCAN_TOL``).  (a) glm4-9b at its published widths
+   in each rank and decode launching only the scan inputs (once a Mamba layer a
+   step), each kernel's first call of each shape in every rank's prefill held
+   against its plain version on the same local shards (flash attention within
+   ``ATTN_TOL``, the RG-LRU scan and the scan inputs bit for bit, the SSM scan
+   within ``SCAN_TOL``).  (a) glm4-9b at its published widths
    with 4 of 40 layers on 2 x 2: 2 x 2048 tokens into a 4096-slot cache, 8 decode
    steps (flash attention 4 a prefill a rank), then the same with ``kv_seq`` on
    ``model`` (the cache split along its slots, the SP merge placed); (b)
    recurrentgemma-9b (3 layers; its 2048-slot window cache wraps in decode) and
-   falcon-mamba-7b (2 layers) likewise, ``rglru_scan`` / ``ssm_scan`` / flash
-   launches counted; (c) arctic-480b with 1 of 35 layers on 1 x 4 (32 experts a
+   falcon-mamba-7b (2 layers) likewise, ``rglru_scan`` / ``ssm_scan`` /
+   ``mamba_inputs`` / flash launches counted; (c) arctic-480b with 1 of 35 layers on 1 x 4 (32 experts a
    rank, the parent's weights by CUDA IPC), 2 x 1024 and 4 steps, the placed
    ``apply_moe`` and ``moe_impl="ep"``; (d) whisper-large-v3 (32 + 32 layers)
    and internvl2-1b (24 layers) at full depth, 2 x 1024 and 8 steps, then one
@@ -226,7 +233,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    (started with the phase, beside the single-process runs), each record ``ok``.  Prints one
    ``{"placed_serving": ...}`` line.
 19. Prints one ``{"phase_s": ...}`` line (each phase's wall seconds, by number), then
-   one ``{"kernels": [...]}`` line with the six kernels (the attention
+   one ``{"kernels": [...]}`` line with the seven kernels (every model kernel's
+   row with ``bound_share`` = bound / ms, the scan inputs' at ``MAMBA_INPUTS_32K``
+   and at the served shape under ``by_model``; the attention
    row with ``bound_share`` = bound / ms and ``vs_library`` = ms / library ms
    for each served model; the sweep row with ``by_scheme``, ``chain_steps``
    and ``ns_per_step`` = ms × 1e6 / chain_steps; its launches by path: the
@@ -1260,7 +1269,7 @@ LOGITS_TOL = 2e-2
 MODELS = (
     ("glm4-9b", {"flash_attention": 40}),
     ("recurrentgemma-9b", {"flash_attention": 12, "rglru_scan": 26}),
-    ("falcon-mamba-7b", {"ssm_scan": 64}),
+    ("falcon-mamba-7b", {"ssm_scan": 64, "mamba_inputs": 64}),
     ("internlm2-20b", {"flash_attention": 48}),
     ("starcoder2-3b", {"flash_attention": 30}),
     ("starcoder2-7b", {"flash_attention": 32}),
@@ -1280,7 +1289,12 @@ MODEL_KERNELS = {
     "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:38"),
     "ssm_scan": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan/kernel.py:49"),
+    # replaces none: the JAX package forms the scan's inputs in XLA's fusion
+    "mamba_inputs": ("src/repro_torch/kernels/mamba_inputs/csrc/mamba_inputs.cu", None),
 }
+#: falcon-mamba-7b's layer at the benchmark's 32,768-id batches, (B, S, D, N), and its dt rank:
+#: the scan-input kernel's headline shape (every batch shape of the cell has these rows).
+MAMBA_INPUTS_32K, MAMBA_DT_RANK = (1, 32768, 8192, 16), 256
 
 #: Small attention cases: (B, Sq, Sk, KV, G, D, causal, window, q_offset), each in
 #: float32 and bfloat16.  The bf16 wgmma + TMA body's tiles are 128 rows (128 // G
@@ -1314,6 +1328,12 @@ ATTN_CASES = (
 #: widths that are multiples of 4 take its TMA body (32 channels a block; 100 and 36 are
 #: no multiple of 32), the others (130, 5) its per-channel body.
 SSM_CASES = ((2, 77, 40, 16, "float32"), (1, 301, 24, 4, "bfloat16"), (2, 5, 8, 2, "float32"))
+#: Small scan-input cases (B, S, D, N, dtype): every state size, channels that fill no
+#: block's tile (256 / (N / 4) channels, 256 below N = 4), rows that fill no 64-row chunk,
+#: one position a row (decode).
+MAMBA_INPUTS_CASES = ((2, 77, 300, 16, "bfloat16"), (1, 45, 40, 4, "float32"), (3, 1, 520, 16, "bfloat16"),
+                      (2, 9, 33, 1, "float32"), (1, 13, 64, 2, "bfloat16"), (1, 21, 96, 8, "float32"),
+                      (2, 5, 70, 32, "bfloat16"))
 RGLRU_CASES = ((2, 77, 96), (1, 1001, 130), (3, 9, 5), (2, 333, 100), (1, 4100, 36))
 #: Instructions counted in the kernels' SASS, and the kernels whose counts phase 2 prints.
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
@@ -1324,6 +1344,7 @@ SASS_KERNELS = ("flash_attention_tma_kernel", "flash_attention_mma_kernel", "rgl
 def kernel_wrappers() -> dict:
     """Every kernel's launch wrapper (each keeps a ``launches`` count)."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.mamba_inputs import kernel as inputs
     from repro_torch.kernels.rglru_scan import kernel as rglru
     from repro_torch.kernels.spot_sweep import kernel as sweep
     from repro_torch.kernels.ssm_scan import kernel as ssm
@@ -1331,8 +1352,8 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.adamw import kernel as adamw
     from repro_torch.kernels.ckpt_codec import kernel as codec
 
-    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm, "ckpt_codec": codec,
-            "adamw": adamw}
+    return {"spot_sweep": sweep, "flash_attention": flash, "rglru_scan": rglru, "ssm_scan": ssm,
+            "mamba_inputs": inputs, "ckpt_codec": codec, "adamw": adamw}
 
 
 def reset_launches() -> None:
@@ -1460,9 +1481,23 @@ def scan_bound(name, args) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
+def mamba_inputs_bound(args) -> tuple[float, str]:
+    """Least time for one formation of the scan's inputs: dt_pre, x and B read, the bias
+    and A_log read, dtA and dBx written once, at HBM bandwidth (its few float32
+    operations a state are far below the card's rate)."""
+    dt_pre, bias, a_log, _, bmat = args
+    B, S, D = dt_pre.shape
+    N = a_log.shape[1]
+    nbytes = (2 * dt_pre.numel() * dt_pre.element_size() + bmat.numel() * bmat.element_size()
+              + bias.numel() * bias.element_size() + 4 * a_log.numel() + 2 * 4 * B * S * D * N)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
 def model_kernel_modules():
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.mamba_inputs import kernel as inputs
+    from repro_torch.kernels.mamba_inputs import ref as inputs_ref
     from repro_torch.kernels.rglru_scan import kernel as rglru
     from repro_torch.kernels.rglru_scan import ref as rglru_ref
     from repro_torch.kernels.ssm_scan import kernel as ssm
@@ -1473,6 +1508,7 @@ def model_kernel_modules():
         "flash_attention": (flash, flash.flash_attention, flash_ref.block_attention),
         "rglru_scan": (rglru, rglru.rglru_scan, rglru_ref.rglru_scan),
         "ssm_scan": (ssm, ssm.ssm_scan, ssm_ref.ssm_scan),
+        "mamba_inputs": (inputs, inputs.mamba_inputs, inputs_ref.mamba_inputs),
     }
 
 
@@ -1520,8 +1556,21 @@ def small_kernel_checks(device) -> dict[str, float]:
         torch.cuda.synchronize()
         for g, w, out in zip(got, want, ("h", "h_last")):
             errs["rglru_scan"] = max(errs["rglru_scan"], check_equal(g, w, f"rglru_scan {out} {(B, S, W)}"))
+    _, inputs, inputs_plain = mods["mamba_inputs"]
+    for B, S, D, N, dtype in MAMBA_INPUTS_CASES:
+        dt_pre = dev(3 * rng.standard_normal((B, S, D)), torch_dtype(dtype))
+        bias = dev(rng.standard_normal(D), torch_dtype(dtype))
+        a_log = dev(np.log(np.arange(1, N + 1))[None, :] + 0.1 * rng.standard_normal((D, N)))
+        x = dev(2 * rng.standard_normal((B, S, D)), torch_dtype(dtype))
+        bmat = dev(rng.standard_normal((B, S, 3 + 2 * N)), torch_dtype(dtype))[..., 3:3 + N]  # a view, as the model's
+        got, want = inputs(dt_pre, bias, a_log, x, bmat), inputs_plain(dt_pre, bias, a_log, x, bmat)
+        torch.cuda.synchronize()
+        for g, w, out in zip(got, want, ("dtA", "dBx")):
+            err = check_equal(g, w, f"mamba_inputs {out} {(B, S, D, N, dtype)}")
+            errs["mamba_inputs"] = max(errs["mamba_inputs"], err)
     print(f"small scans: kernel == plain within {SCAN_TOL} on {len(SSM_CASES)} SSM cases and bit for bit on "
-          f"{len(RGLRU_CASES)} RG-LRU cases; max abs err {errs}", flush=True)
+          f"{len(RGLRU_CASES)} RG-LRU cases; scan inputs bit for bit on {len(MAMBA_INPUTS_CASES)} cases; "
+          f"max abs err {errs}", flush=True)
     return errs
 
 
@@ -1546,22 +1595,25 @@ def model_batch(cfg, device, seed=1, batch=BATCH, prompt=PROMPT) -> dict:
 
 def serve(T, cfg, params, batch, impl) -> tuple:
     """Prefill the requests, then DECODE_STEPS greedy steps; returns (last-token
-    prefill logits, the generated tokens, timings).  Decode runs the plain step
-    functions on every path, as the JAX package does."""
+    prefill logits, the generated tokens, timings, the kernels' launches in the
+    prefill and in the decode steps).  ``impl`` reaches the decode steps too:
+    the plain path launches no kernel in either."""
     import torch
 
     from repro_torch.train.steps import greedy_sample
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     t0 = time.perf_counter()
     logits, cache = T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS, impl=impl)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    prefill_launches = read_launches()
     tok = greedy_sample(logits)
     tokens = [tok]
     for _ in range(DECODE_STEPS):
-        step_logits, cache = T.decode_step(cfg, params, tok, cache)
+        step_logits, cache = T.decode_step(cfg, params, tok, cache, impl=impl)
         tok = greedy_sample(step_logits)
         tokens.append(tok)
     torch.cuda.synchronize()
@@ -1573,7 +1625,8 @@ def serve(T, cfg, params, batch, impl) -> tuple:
         "generated_tokens_per_s": BATCH * DECODE_STEPS / (t2 - t1),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    return logits, torch.cat(tokens, dim=1), stats
+    decode_launches = {k: v - prefill_launches[k] for k, v in read_launches().items()}
+    return logits, torch.cat(tokens, dim=1), stats, (prefill_launches, decode_launches)
 
 
 class FirstCalls:
@@ -1648,31 +1701,49 @@ def attention_body(q) -> str:
 
 def measure_kernel(name, mods, args, kw) -> dict:
     """Hold a kernel against its plain version on one layer's full-width inputs, then
-    time its bare launch, its whole wrapper and the plain version."""
+    time it (:func:`time_kernel`)."""
     import torch
 
-    mod, entry, plain = mods[name]
-    plain_kw = dict(kw, q_block=1024, kv_block=1024) if name == "flash_attention" else kw
-    job = mod.prepare(*args, **kw)  # checks and allocation, outside the timed region
+    mod, _, plain = mods[name]
+    job = mod.prepare(*args, **kw)
     got = mod.launch(job)
-    want = plain(*args, **plain_kw)
+    want = plain(*args, **plain_kwargs(name, kw))
     torch.cuda.synchronize()
     if name == "flash_attention":
         got, want = (got,), (want,)
         err = check_close(got[0], want[0], ATTN_TOL[str(args[0].dtype).removeprefix("torch.")], "full width attention")
-    elif name == "rglru_scan":
-        err = max(check_equal(g, w, "full width rglru_scan") for g, w in zip(got, want))
+    elif name in ("rglru_scan", "mamba_inputs"):
+        err = max(check_equal(g, w, f"full width {name}") for g, w in zip(got, want))
     else:
         err = max(check_close(g, w, SCAN_TOL, f"full width {name}") for g, w in zip(got, want))
-    del got, want
+    del job, got, want
+    return time_kernel(name, mods, args, kw, err)
+
+
+def plain_kwargs(name, kw) -> dict:
+    return dict(kw, q_block=1024, kv_block=1024) if name == "flash_attention" else kw
+
+
+def time_kernel(name, mods, args, kw, err) -> dict:
+    """A kernel's row, ``err`` from its hold against the plain version: its bare launch
+    (checks and allocation outside the timed region), its whole wrapper and the plain
+    version timed in turn, each with only its own outputs on the card, and its bound."""
+    import torch
+
+    mod, entry, plain = mods[name]
+    job = mod.prepare(*args, **kw)
     row = {
         "shape": [list(a.shape) for a in args],
         "dtype": str(args[0].dtype).removeprefix("torch."),
         "max_abs_err": err,
         "ms": time_ms(lambda: mod.launch(job), reps=10),
-        "wrapper_ms": time_ms(lambda: entry(*args, **kw), reps=10),
-        "plain_ms": time_ms(lambda: plain(*args, **plain_kw), reps=3),
     }
+    del job
+    torch.cuda.empty_cache()
+    row["wrapper_ms"] = time_ms(lambda: entry(*args, **kw), reps=10)
+    torch.cuda.empty_cache()
+    row["plain_ms"] = time_ms(lambda: plain(*args, **plain_kwargs(name, kw)), reps=3)
+    torch.cuda.empty_cache()
     if name == "flash_attention":
         row["bound_ms"], row["bound_by"] = attention_bound(args[0], args[1], kw["causal"], kw["window"], kw["q_offset"])
         row["library_ms"] = sdpa_ms(*args, kw["causal"], kw["window"], kw["q_offset"])
@@ -1681,8 +1752,43 @@ def measure_kernel(name, mods, args, kw) -> dict:
         row["body"] = attention_body(args[0])
         row.update({k: kw[k] for k in ("causal", "window", "q_offset")})
     else:
-        row["bound_ms"], row["bound_by"] = scan_bound(name, args)
+        bound = mamba_inputs_bound(args) if name == "mamba_inputs" else scan_bound(name, args)
+        row["bound_ms"], row["bound_by"] = bound
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         row["library_ms"] = None
+    return row
+
+
+def mamba_inputs_32k(device) -> dict:
+    """The scan-input kernel at MAMBA_INPUTS_32K (bf16; B a view of the projection, as the
+    model cuts it): held against the plain version bit for bit 2048 positions at a time
+    (one pair of its outputs is 34.4 GB), then timed (:func:`time_kernel`)."""
+    import torch
+    import torch.nn.functional as F
+
+    mods = model_kernel_modules()
+    mod, _, plain = mods["mamba_inputs"]
+    B, S, D, N = MAMBA_INPUTS_32K
+    gen = torch.Generator(device=device).manual_seed(11)
+    dt_pre = (torch.randn((B, S, D), generator=gen, device=device) - 3).bfloat16()
+    bias = torch.randn((D,), generator=gen, device=device).bfloat16()
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device)).repeat(D, 1)
+    x = F.silu(2 * torch.randn((B, S, D), generator=gen, device=device)).bfloat16()
+    proj = torch.randn((B, S, MAMBA_DT_RANK + 2 * N), generator=gen, device=device).bfloat16()
+    args = (dt_pre, bias, a_log, x, proj[..., MAMBA_DT_RANK:MAMBA_DT_RANK + N])
+    job = mod.prepare(*args)
+    got = mod.launch(job)
+    step = 2048
+    for s0 in range(0, S, step):
+        part = [a[:, s0:s0 + step] if a.dim() == 3 else a for a in args]
+        for g, w, out in zip(got, plain(*part), ("dtA", "dBx")):
+            check_equal(g[:, s0:s0 + step], w, f"mamba_inputs {out} {MAMBA_INPUTS_32K} positions {s0}-{s0 + step}")
+    del job, got
+    torch.cuda.empty_cache()
+    row = time_kernel("mamba_inputs", mods, args, {}, 0.0)
+    print(f"mamba_inputs {MAMBA_INPUTS_32K} bf16: kernel == plain bit for bit, {row['ms']:.4f} ms (bound "
+          f"{row['bound_ms']:.4f}, {100 * row['bound_share']:.1f} %; wrapper {row['wrapper_ms']:.4f}, plain "
+          f"{row['plain_ms']:.3f})", flush=True)
     return row
 
 
@@ -1736,11 +1842,14 @@ def serve_models(device) -> dict[str, dict]:
         T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS)
         torch.cuda.synchronize()
 
-        reset_launches()
-        logits, tokens, kernel_stats = serve(T, cfg, params, batch, impl=None)  # the main path
-        launches = read_launches()
+        logits, tokens, kernel_stats, (launches, decode_launches) = serve(T, cfg, params, batch,
+                                                                          impl=None)  # the main path
         if launches != {name: expected.get(name, 0) for name in launches}:
             raise AssertionError(f"{arch}: kernel launches {launches}, expected {expected}")
+        # a decode step forms each Mamba layer's scan inputs with the kernel; nothing else launches one
+        want = {name: DECODE_STEPS * expected.get(name, 0) if name == "mamba_inputs" else 0 for name in decode_launches}
+        if decode_launches != want:
+            raise AssertionError(f"{arch}: decode launches {decode_launches}, expected {want}")
         same_bits = None
         if cfg.family == "moe":  # the dispatch and combine use no atomics: a rerun gives the same bits
             again, _ = T.prefill(cfg, params, batch, PROMPT + DECODE_STEPS)
@@ -1749,7 +1858,9 @@ def serve_models(device) -> dict[str, dict]:
             if not same_bits:
                 raise AssertionError(f"{arch}: two prefills of the same requests differ in their logits' bits")
             del again, first
-        plain_logits, plain_tokens, plain_stats = serve(T, cfg, params, batch, impl="plain")
+        plain_logits, plain_tokens, plain_stats, plain_launches = serve(T, cfg, params, batch, impl="plain")
+        if any(n for launched in plain_launches for n in launched.values()):
+            raise AssertionError(f"{arch}: the plain path launched kernels: {plain_launches}")
         if logits.shape != (BATCH, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch}: logits {tuple(logits.shape)} or non-finite values")
         err = float((logits.float() - plain_logits.float()).abs().max())
@@ -1761,7 +1872,8 @@ def serve_models(device) -> dict[str, dict]:
 
         # the model's first layers up to the first of each kind again (an enc-dec's first
         # encoder layer too), recording the kernels' inputs (the same as the full model's
-        # first layers get); each shape an attention takes there is measured
+        # first layers get) in a prefill and in one decode step; each shape a kernel takes
+        # there is measured
         kinds = T.layer_kinds(cfg)
         n_first = max(kinds.index(kind) for kind in set(kinds)) + 1
         head = dataclasses.replace(cfg, n_layers=n_first, encoder_layers=min(cfg.encoder_layers, 1))
@@ -1769,20 +1881,28 @@ def serve_models(device) -> dict[str, dict]:
         if "encoder" in params:
             head_params["encoder"] = params["encoder"][:1]
         with FirstCalls(mods) as calls:
-            T.prefill(head, head_params, batch, PROMPT)
-        del head_params
+            _, head_cache = T.prefill(head, head_params, batch, PROMPT + 1)
+        with FirstCalls(mods) as step_calls:
+            T.decode_step(head, head_params, batch["tokens"][:, -1:], head_cache)
+        del head_params, head_cache
         for name in list(calls.inputs):
             found[name]["launches"][arch] = launches[name]
             for i, (args, kw) in enumerate(calls.shapes.pop(name).values()):
                 label = arch if i == 0 else f"{arch} ({'decoder' if cfg.family == 'encdec' else i})"
                 found[name]["full_width"][label] = measure_kernel(name, mods, args, kw)
             del args, kw
+        for name, shapes in step_calls.shapes.items():
+            for args, kw in shapes.values():
+                found[name]["full_width"][f"{arch} (decode)"] = measure_kernel(name, mods, args, kw)
+            del args, kw
         calls.inputs.clear()
+        step_calls.inputs.clear()
 
         print(json.dumps({"serving": {
             "model": arch, "layers": cfg.n_layers, "of_layers": full.n_layers,
             "encoder_layers": cfg.encoder_layers, "params_b": n_params / 1e9, "batch": BATCH,
             "prompt_tokens": PROMPT, "decode_steps": DECODE_STEPS, "init_s": init_s, "launches": launches,
+            "decode_launches": {k: v for k, v in decode_launches.items() if v},
             "logits_max_abs_err": err, "logits_scale": scale, "logits_tol": LOGITS_TOL * (1.0 + scale),
             "greedy_tokens_agree": agree, "moe_prefill_same_bits": same_bits, "kernel": kernel_stats,
             "plain": plain_stats,
@@ -1913,7 +2033,8 @@ def model_kernel_rows(found, small_errs) -> list[dict]:
             "launches": sum(found[name]["launches"].values()),
             "max_abs_err": max(max(r["max_abs_err"] for r in runs.values()), small_errs[name]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "wrapper_ms": m["wrapper_ms"], "match": True,
+            "bound_share": m["bound_ms"] / m["ms"], "library_ms": m["library_ms"], "wrapper_ms": m["wrapper_ms"],
+            "match": True,
             "model": first, "launches_by_model": found[name]["launches"], "by_model": runs,
         })
     return rows
@@ -2974,7 +3095,7 @@ def parallel_phase(device, card) -> dict:
 #: is the ranks' start, the checkpoint's gather and write, and its restore in four ranks.
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
 MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_MOMENTS = 2, 2048, 2, "bfloat16"
-MESH_SCAN_MODELS = (("falcon-mamba-7b", 2, {"ssm_scan": 2}), ("recurrentgemma-9b", 3,
+MESH_SCAN_MODELS = (("falcon-mamba-7b", 2, {"ssm_scan": 2, "mamba_inputs": 2}), ("recurrentgemma-9b", 3,
                                                                  {"rglru_scan": 2, "flash_attention": 1}))
 MESH_SCAN_BATCH, MESH_SCAN_SEQ = 2, 512
 ELASTIC_STEPS, ELASTIC_CODEC = 2, "int8"
@@ -3420,7 +3541,8 @@ PLACED_CASES = (
     ("glm4-9b_sp_kv", "glm4-9b", 4, 2048, 4096, 8, {"kv_seq": "model"}, PLACED_SHAPE, {}, {"flash_attention": 4}),
     ("recurrentgemma-9b", "recurrentgemma-9b", 3, 2048, 4096, 8, {}, PLACED_SHAPE, {},
      {"rglru_scan": 2, "flash_attention": 1}),
-    ("falcon-mamba-7b", "falcon-mamba-7b", 2, 2048, 4096, 8, {}, PLACED_SHAPE, {}, {"ssm_scan": 2}),
+    ("falcon-mamba-7b", "falcon-mamba-7b", 2, 2048, 4096, 8, {}, PLACED_SHAPE, {},
+     {"ssm_scan": 2, "mamba_inputs": 2}),
     ("arctic-480b", "arctic-480b", 1, 1024, 2048, 4, {}, PLACED_MOE_SHAPE, {}, {"flash_attention": 1}),
     ("arctic-480b_ep", "arctic-480b", 1, 1024, 2048, 4, {}, PLACED_MOE_SHAPE, {"moe_impl": "ep"},
      {"flash_attention": 1}),
@@ -3547,14 +3669,14 @@ def hold_local_calls(name, calls) -> dict:
     """A kernel's calls on one rank's local shards (recorded by :class:`FirstOfEach` on
     its wrapper) against its plain version on the same inputs, on the card, as phase 11
     holds it: flash attention within ``ATTN_TOL`` (``SP_CHUNK`` queries at a time), the
-    RG-LRU scan bit for bit, the SSM scan within ``SCAN_TOL``."""
+    RG-LRU scan and the scan inputs bit for bit, the SSM scan within ``SCAN_TOL``."""
     plain = model_kernel_modules()[name][2]
     err = 0.0
     for args, kw, out in calls:
-        what = f"placed prefill {name} {[tuple(a.shape) for a in args]}"
+        what = f"placed {name} {[tuple(a.shape) for a in args]}"
         if name == "flash_attention":
             err = max(err, hold_flash_prefill((args, kw, out), what))
-        elif name == "rglru_scan":
+        elif name in ("rglru_scan", "mamba_inputs"):
             err = max(err, *(check_equal(g, w, what) for g, w in zip(out, plain(*args), strict=True)))
         else:
             err = max(err, *(check_close(g, w, SCAN_TOL, what) for g, w in zip(out, plain(*args), strict=True)))
@@ -3564,7 +3686,8 @@ def hold_local_calls(name, calls) -> dict:
 def placed_rank(rank, tokens, params, names, with_loss) -> dict:
     """The cases ``names`` of the phase in one rank: the placed prefill and the decode
     steps fed the single process's tokens (``tokens[name]``), each kernel's first call
-    of each shape in the prefill held against its plain version, then, ``with_loss``,
+    of each shape in the prefill and the decode steps held against its plain version,
+    then, ``with_loss``,
     (d)'s loss and gradient, on the parent's parameters (``params``, by CUDA IPC: each
     rank's shards are views of them, ``place(..., copy=False)``)."""
     import contextlib
@@ -3598,18 +3721,23 @@ def placed_rank(rank, tokens, params, names, with_loss) -> dict:
                 logits, cache = T.prefill(cfg, placed, batch, slots)  # the main path
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-            launches = read_launches()
-            got = {"logits": [logits.full_tensor().float().cpu()], "launches": launches, "prefill_s": t1 - t0}
-            own = [greedy_sample(logits).cpu()]
-            for tok in tokens[name][:steps]:
-                logits, cache = T.decode_step(cfg, placed, tok.to(device), cache)  # the main path
-                got["logits"].append(logits.full_tensor().float().cpu())
-                own.append(greedy_sample(logits).cpu())
-            torch.cuda.synchronize()
-            if read_launches() != launches:  # decode is plain, as in the JAX package
-                raise AssertionError(f"placed {name}: decode launched kernels: {read_launches()} after {launches}")
+                launches = read_launches()
+                got = {"logits": [logits.full_tensor().float().cpu()], "launches": launches, "prefill_s": t1 - t0}
+                own = [greedy_sample(logits).cpu()]
+                for tok in tokens[name][:steps]:
+                    logits, cache = T.decode_step(cfg, placed, tok.to(device), cache)  # the main path
+                    got["logits"].append(logits.full_tensor().float().cpu())
+                    own.append(greedy_sample(logits).cpu())
+                torch.cuda.synchronize()
+            # a decode step forms each Mamba layer's scan inputs with the kernel; nothing else launches one
+            decoded = {k: v - launches[k] for k, v in read_launches().items()}
+            if decoded != {k: steps * launches[k] if k == "mamba_inputs" else 0 for k in decoded}:
+                raise AssertionError(f"placed {name}: decode launched {decoded} after a prefill's {launches}")
             got["decode_ms"] = 1e3 * (time.perf_counter() - t1) / steps
             got["tokens"] = own
+            unheld = [k for k, r in recorded.items() if decoded[k] and not any(a[0].shape[1] == 1 for a, _, _ in r.calls)]
+            if unheld:
+                raise AssertionError(f"placed {name}: {unheld} launched in the decode steps but not recorded there")
             got["kernel_vs_plain"] = {k: hold_local_calls(k, r.calls) for k, r in recorded.items() if r.calls}
             del recorded
             first = cache["layers"][0]
@@ -3938,6 +4066,8 @@ def main() -> int:
     # -- 11. serving at full width -------------------------------------------
     init_stream_check(device)
     found = serve_models(device)
+    runs = found["mamba_inputs"]["full_width"]  # the 32k layer first: the row's headline
+    found["mamba_inputs"]["full_width"] = {"falcon-mamba-7b 32k": mamba_inputs_32k(device), **runs}
     lap("11")
 
     # -- 12. the codec kernel vs its plain version at small sizes ---------------

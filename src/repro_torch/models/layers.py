@@ -315,10 +315,10 @@ class Mixer(NamedTuple):
     over a whole normed sequence ``x (B, S, d)`` and returns ``(h, cache)``:
     ``cache`` is the empty decode cache a prefill fills (None in a forward,
     where attention returns None; a scan returns its own last state);
-    ``decode(cfg, params, name, x, cache)`` runs one token and returns ``(h,
-    new cache)``; ``init_cache(cfg, batch, max_len, dtype, device)`` makes an
-    empty cache for ``max_len`` positions; ``cache_axes()`` gives its
-    logical axes."""
+    ``decode(cfg, params, name, x, cache, *, impl)`` runs one token and
+    returns ``(h, new cache)``; ``init_cache(cfg, batch, max_len, dtype,
+    device)`` makes an empty cache for ``max_len`` positions; ``cache_axes()``
+    gives its logical axes."""
 
     init: Callable
     apply: Callable
@@ -341,7 +341,8 @@ def attention_mixer(*, causal: bool = True, local: bool = False) -> Mixer:
             fill_attention_cache(cache, k, v)
         return h, cache
 
-    def decode(cfg: ModelConfig, params, name: str, x, cache):
+    def decode(cfg: ModelConfig, params, name: str, x, cache, *, impl):
+        # the one-token attention runs no kernel
         return apply_attention_decode(cfg, params, name, x, cache, window=window(cfg))
 
     def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
@@ -359,9 +360,9 @@ BIDIRECTIONAL_ATTENTION = attention_mixer(causal=False)
 def scan_mixer(init, prefill, decode, init_cache, cache_axes) -> Mixer:
     """A recurrent scan as a :class:`Mixer`, from its module's functions:
     ``prefill(cfg, params, name, x, *, impl)`` makes the decode cache itself
-    (the empty one and the attention's tiles it is handed go unused), and
-    ``init_cache(cfg, batch, dtype, device)``'s state does not grow with
-    ``max_len``."""
+    (the empty one and the attention's tiles it is handed go unused),
+    ``decode`` is the Mixer's own, and ``init_cache(cfg, batch, dtype,
+    device)``'s state does not grow with ``max_len``."""
     def apply(cfg: ModelConfig, params, name: str, x, cache, *, q_block, kv_block, impl):
         return prefill(cfg, params, name, x, impl=impl)
 

@@ -11,12 +11,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mamba_inputs.ref import softplus
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rglru_scan.ref import RG_LRU_C
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
-from repro_torch.models.ssm import causal_conv, conv_tail, softplus
+from repro_torch.models.ssm import causal_conv, conv_tail
 from repro_torch.parallel.sharding import shard
 
 
@@ -70,9 +71,10 @@ def apply_rglru_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     return out, {"conv": conv_tail(xb, cfg.ssm_conv), "h": h_last}
 
 
-def apply_rglru_decode(cfg: ModelConfig, params, name: str, x, cache):
+def apply_rglru_decode(cfg: ModelConfig, params, name: str, x, cache, *, impl=None):
     """One-token step.  x ``(B, 1, d)``; cache ``{"conv": (B, K-1, W), "h":
-    (B, W)}``.  Returns ``(out, new cache)``."""
+    (B, W)}``.  Returns ``(out, new cache)``.  The step runs no kernel, so
+    ``impl`` changes nothing."""
     xb = x @ params[f"{name}.in_x"]
     gate = x @ params[f"{name}.in_gate"]
     x_conv, conv_state = causal_conv(xb, params[f"{name}.conv_w"], params[f"{name}.conv_b"], cache["conv"])

@@ -1,7 +1,8 @@
 """Mamba-1 block (falcon-mamba-7b): causal conv + selective state-space scan.
 
-The port of :mod:`repro.models.ssm`.  The prefill scan goes through the SSM
-scan op (the CUDA kernel on the card); the decode step is plain.  The
+The port of :mod:`repro.models.ssm`.  The scan's inputs go through the
+``mamba_inputs`` op and the prefill scan through the SSM scan op (each the
+CUDA kernel on the card); the decode step's scan is plain.  The
 ``jamba`` family's mixer adds RMS norms on dt's low-rank input, B and C
 (``dt_norm``, ``b_norm``, ``c_norm``) after ``x_proj``; the ``ssm`` family
 has none.
@@ -13,17 +14,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
+from repro_torch.kernels.mamba_inputs import ops as inputs_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamBuilder
 from repro_torch.parallel.sharding import shard
-
-
-def softplus(x):
-    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it (``logaddexp(x,
-    0)``); ``F.softplus`` returns x itself above 20."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def init_mamba(b: ParamBuilder, name: str, cfg: ModelConfig):
@@ -75,9 +71,10 @@ def causal_conv(x, w, bias, state=None):
     return out + bias, new_state
 
 
-def ssm_inputs(cfg: ModelConfig, params, name: str, x_act):
+def ssm_inputs(cfg: ModelConfig, params, name: str, x_act, *, impl=None):
     """x_act ``(B, S, D)`` -> ``(dtA, dBx, C)`` of the scan: dtA and dBx
-    ``(B, S, D, N)`` float32, C ``(B, S, N)`` in x_act's dtype."""
+    ``(B, S, D, N)`` float32 (the ``mamba_inputs`` op), C ``(B, S, N)`` in
+    x_act's dtype."""
     n, r = cfg.ssm_state, cfg.dt_rank
     # summed over the channels once here, before it is cut into dt_low, B and C (a
     # no-op on plain tensors; on placed ones the split channels leave a partial sum)
@@ -87,11 +84,8 @@ def ssm_inputs(cfg: ModelConfig, params, name: str, x_act):
         dt_low = L.apply_norm(cfg, params, f"{name}.dt_norm", dt_low)
         bmat = L.apply_norm(cfg, params, f"{name}.b_norm", bmat)
         cmat = L.apply_norm(cfg, params, f"{name}.c_norm", cmat)
-    dt = dt_low @ params[f"{name}.dt_proj"] + params[f"{name}.dt_bias"]
-    dt = softplus(dt.float())  # (B, S, D)
-    a = -torch.exp(params[f"{name}.A_log"].float())  # (D, N)
-    dtA = dt[..., None] * a
-    dBx = (dt * x_act.float())[..., None] * bmat.float()[:, :, None, :]
+    dtA, dBx = inputs_ops.mamba_inputs(dt_low @ params[f"{name}.dt_proj"], params[f"{name}.dt_bias"],
+                                       params[f"{name}.A_log"], x_act, bmat, impl=impl)
     return dtA, dBx, cmat
 
 
@@ -118,7 +112,7 @@ def apply_mamba_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     x_conv, _ = causal_conv(x_in, params[f"{name}.conv_w"], params[f"{name}.conv_b"])
     x_act = F.silu(x_conv)
     with obs.current().span("prefill.ssm_inputs"):
-        dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act)
+        dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act, impl=impl)
     y, h_last = ssm_ops.ssm_scan(dtA, dBx, cmat.contiguous(), impl=impl)
     del dtA, dBx
     y = y + params[f"{name}.D"] * x_act.float()
@@ -127,13 +121,13 @@ def apply_mamba_prefill(cfg: ModelConfig, params, name: str, x, *, impl=None):
     return out, {"conv": conv_tail(x_in, cfg.ssm_conv), "h": h_last}
 
 
-def apply_mamba_decode(cfg: ModelConfig, params, name: str, x, cache):
+def apply_mamba_decode(cfg: ModelConfig, params, name: str, x, cache, *, impl=None):
     """One-token step.  x ``(B, 1, d)``; cache ``{"conv": (B, K-1, D), "h":
     (B, D, N)}``.  Returns ``(out, new cache)``."""
     x_in, z = torch.chunk(x @ params[f"{name}.in_proj"], 2, dim=-1)
     x_conv, conv_state = causal_conv(x_in, params[f"{name}.conv_w"], params[f"{name}.conv_b"], cache["conv"])
     x_act = F.silu(x_conv)
-    dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act)
+    dtA, dBx, cmat = ssm_inputs(cfg, params, name, x_act, impl=impl)
     y, h = ssm_ops.ssm_step(dtA[:, 0], dBx[:, 0], cmat[:, 0], cache["h"])
     y = y + params[f"{name}.D"] * x_act[:, 0].float()
     y = y[:, None, :].to(x.dtype) * F.silu(z)

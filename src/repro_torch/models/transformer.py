@@ -595,20 +595,22 @@ def _prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, dev, *, 
     return L.unembed(cfg, params, x), cache if mesh is None else _as_cache_axes(cfg, cache)
 
 
-def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, device=None):
+def decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, *, impl=None, device=None):
     """One decode step: tokens ``(B, 1)`` -> ``(logits (B, 1, V_pad), new
     cache)``.  The attention caches' k / v are updated in place.  On placed
     parameters the cache is placed (as :func:`prefill` returns it) and plain
-    tokens are placed by ``("batch", None)``."""
+    tokens are placed by ``("batch", None)``.  ``impl="plain"`` keeps the
+    kernels out of the step, as in :func:`prefill`."""
+    check_impl(impl)
     dev = _device(params, device)
     table = params["embed.tokens"]
     with obs.current().span("decode.step", pos=cache["len"]), _mesh_of(params):
         if SH.is_placed(table):
             tokens = place_batch(table.device_mesh, {"tokens": tokens})["tokens"]
-        return _decode_step(cfg, params, _on(tokens, dev), cache)
+        return _decode_step(cfg, params, _on(tokens, dev), cache, impl)
 
 
-def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
+def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict, impl):
     pos = cache["len"]
     x = L.embed_tokens(cfg, params, tokens, position_offset=pos)
     new_caches = []
@@ -618,7 +620,7 @@ def _decode_step(cfg: ModelConfig, params: dict, tokens, cache: dict):
             p = _fsdp_gather(p)
         xn = L.apply_norm(cfg, p, e.norm, x)
         with tel.span("decode.mixer"):
-            h, nc = e.mixer.decode(cfg, p, e.name, xn, lc["self"] if e.cross else lc)
+            h, nc = e.mixer.decode(cfg, p, e.name, xn, lc["self"] if e.cross else lc, impl=impl)
         x = x + h
         if e.cross:
             x = x + _cross_attention(p, "cross_attn", L.apply_norm(cfg, p, "norm_cross", x), lc["cross_k"],

@@ -28,7 +28,8 @@ The model paths record, from the entry points down to the kernels:
 ``train.backward``                     its gradient (``torch.autograd.grad``)
 ``train.adamw``                        the AdamW update
 ``prefill`` (``rows``, ``ids``)        ``models/transformer.py::prefill``
-``prefill.ssm_inputs``                 a Mamba layer's scan inputs (``models/ssm.py``)
+``prefill.ssm_inputs``                 a Mamba layer's scan inputs (``models/ssm.py``; on the card
+                                       ``kernel.mamba_inputs`` inside it)
 ``prefill.moe``                        a MoE layer's routing, expert products and combine
 ``decode.step`` (``pos``)              ``models/transformer.py::decode_step``
 ``decode.mixer``                       a layer's mixer in a decode step

@@ -52,6 +52,30 @@ def test_bounds_at_the_served_shapes(smoke):
     assert ssm[1] == "bytes" and ssm[0] == pytest.approx(2.6447, rel=1e-3)
 
 
+def test_mamba_inputs_bound_and_cases(smoke):
+    """The scan inputs' bytes bound at falcon-mamba-7b's 32k layer (dt_pre and x read,
+    dtA and dBx written: ~10.6 ms), and small cases at every state size the scan takes,
+    off a block's channel tile and its 64-row chunk, one position a row among them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan.kernel import STATE_SIZES
+
+    cfg = get_config("falcon-mamba-7b")
+    B, S, D, N = smoke.MAMBA_INPUTS_32K
+    assert (D, N, smoke.MAMBA_DT_RANK, B * S) == (cfg.d_inner, cfg.ssm_state, cfg.dt_rank, 32768)
+    meta = {"device": "meta", "dtype": torch.bfloat16}
+    proj = torch.empty((B, S, smoke.MAMBA_DT_RANK + 2 * N), **meta)
+    args = (torch.empty((B, S, D), **meta), torch.empty((D,), **meta), torch.empty((D, N), device="meta"),
+            torch.empty((B, S, D), **meta), proj[..., smoke.MAMBA_DT_RANK:smoke.MAMBA_DT_RANK + N])
+    ms, by = smoke.mamba_inputs_bound(args)
+    nbytes = 2 * 2 * B * S * D + 2 * B * S * N + 2 * D + 4 * D * N + 2 * 4 * B * S * D * N
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / 3.35e12) and 10.5 < ms < 10.7
+    cases = smoke.MAMBA_INPUTS_CASES
+    assert {c[3] for c in cases} == set(STATE_SIZES) and {c[4] for c in cases} == {"float32", "bfloat16"}
+    assert any(c[2] % 256 and c[2] > 256 for c in cases) and any(c[1] == 1 for c in cases)
+    assert any((c[0] * c[1]) % 64 and c[0] * c[1] > 64 for c in cases)
+    assert smoke.MODEL_KERNELS["mamba_inputs"][1] is None and "mamba_inputs" in smoke.kernel_wrappers()
+
+
 def test_backward_bound_and_shapes(smoke):
     """The backward's bound at glm4-9b's train shape (10 * D operations a visible pair and
     head: 0.695 ms), and every shape the smoke run holds takes the backward kernel."""
@@ -119,7 +143,8 @@ def test_served_models_and_their_launches(smoke):
         cfg = dataclasses.replace(cfg, n_layers=smoke.MODEL_LAYERS.get(arch, cfg.n_layers))
         kinds = T.layer_kinds(cfg)
         flash = sum(kinds.count(k) for k in ("dense", "attn", "moe", "decoder")) + cfg.encoder_layers
-        want = {"flash_attention": flash, "rglru_scan": kinds.count("rec"), "ssm_scan": kinds.count("mamba")}
+        want = {"flash_attention": flash, "rglru_scan": kinds.count("rec"), "ssm_scan": kinds.count("mamba"),
+                "mamba_inputs": kinds.count("mamba")}
         assert expected == {k: v for k, v in want.items() if v}, arch
 
 
@@ -546,7 +571,7 @@ def test_first_of_each_keeps_one_call_a_shape_and_keyword_set(smoke):
     assert float(rec.calls[0][2].sum()) == 6.0 and mod.f(a).shape == (2, 3)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "ssm_scan"])
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "ssm_scan", "mamba_inputs"])
 def test_hold_local_calls_passes_the_plain_result_and_catches_a_wrong_one(smoke, name):
     gen = torch.Generator().manual_seed(2)
     if name == "flash_attention":
@@ -554,6 +579,10 @@ def test_hold_local_calls_passes_the_plain_result_and_catches_a_wrong_one(smoke,
         kw = {"causal": False, "window": 0, "q_offset": 0}  # the whisper encoder's bidirectional layers
     elif name == "rglru_scan":
         args, kw = (-torch.rand((1, 30, 8), generator=gen), torch.randn((1, 30, 8), generator=gen)), {}
+    elif name == "mamba_inputs":
+        args, kw = (torch.randn((1, 30, 6), generator=gen), torch.randn((6,), generator=gen),
+                    torch.randn((6, 4), generator=gen), torch.randn((1, 30, 6), generator=gen),
+                    torch.randn((1, 30, 9), generator=gen)[..., 5:]), {}
     else:
         args, kw = (-torch.rand((1, 30, 6, 4), generator=gen), torch.randn((1, 30, 6, 4), generator=gen),
                     torch.randn((1, 30, 4), generator=gen)), {}
@@ -565,7 +594,7 @@ def test_hold_local_calls_passes_the_plain_result_and_catches_a_wrong_one(smoke,
     assert held == {"max_abs_err": 0.0, "shapes": [[list(a.shape) for a in args]]}
     wrong = out.clone() if name == "flash_attention" else tuple(o.clone() for o in out)
     (wrong if name == "flash_attention" else wrong[0])[0, -1] += 0.5
-    with pytest.raises(AssertionError, match=f"placed prefill {name}"):
+    with pytest.raises(AssertionError, match=f"placed {name}"):
         smoke.hold_local_calls(name, [(args, kw, out), (args, kw, wrong)])
 
 
@@ -584,7 +613,8 @@ def test_mesh_phase_cuts_tolerances_and_line(smoke):
         full = get_config(arch)
         assert layers < full.n_layers and cuts["scans"][arch]["layers"] == layers
     assert dict((a, l) for a, _, l in smoke.MESH_SCAN_MODELS) == {
-        "falcon-mamba-7b": {"ssm_scan": 2}, "recurrentgemma-9b": {"rglru_scan": 2, "flash_attention": 1}}
+        "falcon-mamba-7b": {"ssm_scan": 2, "mamba_inputs": 2},
+        "recurrentgemma-9b": {"rglru_scan": 2, "flash_attention": 1}}
     # (c): the example's two launches at (a)'s widths and depth, int8, 2 ranks then 4, two steps each
     run = smoke.elastic_run("/nowhere")
     cfg = run.config()

@@ -17,7 +17,10 @@ AdamW update kernel must equal the plain ``upd_block`` bit for bit for every
 pairing of parameter and moment dtypes, and its sum of squares lie within
 1e-6 of ``torch.sum``'s (another order of the same float32 additions) and
 repeat its own bits; ``adamw_update`` on the card launches one update and one
-sum a leaf and never waits on the device.  Run
+sum a leaf and never waits on the device.  The Mamba scan's inputs (dtA, dBx)
+must equal the plain formation bit for bit (NaN where it is NaN), alone and
+in both Mamba families' ``ssm_inputs``, and launch once a Mamba layer in a
+prefill and in a decode step.  Run
 them on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -39,6 +42,8 @@ from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.mamba_inputs import kernel as inputs
+from repro_torch.kernels.mamba_inputs import ref as inputs_ref
 from repro_torch.kernels.rglru_scan import kernel as rglru
 from repro_torch.kernels.rglru_scan import ref as rglru_ref
 from repro_torch.kernels.spot_sweep import kernel, ops, ref
@@ -445,6 +450,131 @@ def test_rglru_scan_matches_plain_version(cuda, shape):
         assert torch.equal(g, w)
 
 
+def mamba_inputs_args(shape, dtype, device, seed=0, extremes=False):
+    """dt_pre, the bias, A_log, x and B (a strided view of the projection it is
+    cut from, as the model's) for ``shape`` = (B, S, D, N).  ``extremes`` puts
+    values in dt_pre that reach softplus's large-argument branch (v itself past
+    ~1e8, 0 below ~-104), its infinities and NaN."""
+    B, S, D, N = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=device) * scale  # noqa: E731
+    dt_pre = r(B, S, D, scale=3.0)
+    if extremes:
+        flat = dt_pre.view(-1)
+        flat[:12] = torch.tensor([float("inf"), float("-inf"), float("nan"), 3e38, -3e38, 1e9, -1e9, 88.0, -104.0,
+                                  20.0, -20.0, 0.0], device=device)
+    proj = r(B, S, 3 + 2 * N)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device)).repeat(D, 1) + r(D, N, scale=0.1)
+    return (dt_pre.to(dtype), r(D).to(dtype), a_log, r(B, S, D, scale=2.0).to(dtype), proj.to(dtype)[..., 3:3 + N])
+
+
+def assert_same_bits(got, want, what):
+    """Bit for bit, NaN where the plain version is NaN (its payload aside)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)), what
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 40, 1), (1, 33, 24, 2), (2, 29, 64, 4), (1, 65, 80, 8), (2, 77, 300, 16),
+                                   (1, 31, 33, 32), (3, 1, 520, 16), (1, 70, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_inputs_match_the_plain_formation_bitwise(cuda, shape, dtype):
+    """Every state size the scan takes, channels that fill no block's tile (40,
+    300, 33, 520), row counts that fill no 64-row chunk (74, 154, 3), one
+    position a row (decode), and B a strided view."""
+    args = mamba_inputs_args(shape, dtype, cuda, seed=shape[2])
+    before = inputs.launches
+    got, want = inputs.mamba_inputs(*args), inputs_ref.mamba_inputs(*args)
+    torch.cuda.synchronize()
+    assert inputs.launches == before + 1
+    for g, w, what in zip(got, want, ("dtA", "dBx")):
+        assert_same_bits(g, w, what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_inputs_at_softplus_extremes_match_bitwise(cuda, dtype):
+    args = mamba_inputs_args((2, 9, 40, 16), dtype, cuda, seed=3, extremes=True)
+    got, want = inputs.mamba_inputs(*args), inputs_ref.mamba_inputs(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(want[0]).any()) and bool(torch.isnan(want[0]).any())
+    for g, w, what in zip(got, want, ("dtA", "dBx")):
+        assert_same_bits(g, w, what)
+
+
+@pytest.mark.parametrize("state", [4, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba2-mini"])
+def test_ssm_inputs_of_both_mamba_families_match_the_plain_path_bitwise(cuda, arch, dtype, state):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ssm as mamba
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, ssm_state=state)
+    params = T.init_params(cfg, seed=0, device=cuda)
+    layer = params["layers"][0]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    layer["mixer.dt_bias"].copy_(torch.randn(layer["mixer.dt_bias"].shape, generator=gen, device=cuda))
+    x_act = torch.nn.functional.silu(torch.randn((2, 45, cfg.d_inner), generator=gen, device=cuda)).to(
+        layer["mixer.dt_bias"].dtype)
+    before = inputs.launches
+    got = mamba.ssm_inputs(cfg, layer, "mixer", x_act)
+    want = mamba.ssm_inputs(cfg, layer, "mixer", x_act, impl="plain")
+    torch.cuda.synchronize()
+    assert inputs.launches == before + 1
+    for g, w, what in zip(got, want, ("dtA", "dBx", "C")):
+        assert torch.equal(g, w), what
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba2-mini"])
+def test_mamba_inputs_launch_once_a_mamba_layer_in_prefill_and_decode(cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, seed=0, device=cuda)
+    mamba = sum(kind.startswith("mamba") for kind in T.layer_kinds(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator(device=cuda).manual_seed(3),
+                           device=cuda)
+    counts = (inputs.launches, ssm.launches)
+    logits, cache = T.prefill(cfg, params, {"tokens": tokens}, 32, q_block=8, kv_block=8)
+    assert (inputs.launches - counts[0], ssm.launches - counts[1]) == (mamba, mamba)
+    counts = (inputs.launches, ssm.launches)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    step, _ = T.decode_step(cfg, params, tok, cache)
+    torch.cuda.synchronize()
+    assert (inputs.launches - counts[0], ssm.launches - counts[1]) == (mamba, 0)  # the decode scan is plain
+    assert torch.isfinite(step.float()).all()
+    counts = (inputs.launches, ssm.launches)
+    plain_step, _ = T.decode_step(cfg, params, tok, cache, impl="plain")  # the same slot, the same values
+    torch.cuda.synchronize()
+    assert (inputs.launches, ssm.launches) == counts
+    assert torch.equal(step, plain_step)
+
+
+def test_mamba_inputs_wrapper_rejects_bad_inputs(cuda):
+    dt_pre, bias, a_log, x, b = mamba_inputs_args((1, 8, 16, 4), torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        inputs.prepare(dt_pre, bias.float(), a_log, x, b)
+    with pytest.raises(TypeError, match="dtype"):
+        inputs.prepare(dt_pre, bias, a_log.bfloat16(), x, b)
+    with pytest.raises(TypeError, match="dtype"):
+        inputs.prepare(*(t.half() for t in (dt_pre, bias)), a_log, *(t.half() for t in (x, b)))
+    with pytest.raises(ValueError, match="expected"):
+        inputs.prepare(dt_pre, bias, a_log, x, b.float())
+    with pytest.raises(ValueError, match="state size 12"):
+        inputs.prepare(dt_pre, bias, torch.zeros((16, 12), device=cuda), x,
+                       torch.zeros((1, 8, 12), device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="unit stride"):
+        inputs.prepare(dt_pre, bias, a_log, x, torch.zeros((1, 8, 8), device=cuda).bfloat16()[..., ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        inputs.prepare(dt_pre, bias, a_log, x.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(ValueError, match="is on cpu"):
+        inputs.prepare(dt_pre, bias, a_log, x.cpu(), b)
+    with pytest.raises(ValueError, match="empty"):
+        inputs.prepare(dt_pre[:, :0], bias, a_log, x[:, :0], b[:, :0])
+
+
 def test_model_wrappers_reject_bad_inputs(cuda):
     q = torch.randn((1, 16, 4, 64), device=cuda)
     k = torch.randn((1, 16, 2, 64), device=cuda)
@@ -703,6 +833,9 @@ def test_prepare_refuses_grad_inputs_outside_the_function(cuda):
         ssm.prepare(torch.zeros((1, 4, 2, 2), device=cuda, requires_grad=True), torch.zeros((1, 4, 2, 2), device=cuda),
                     torch.zeros((1, 4, 2), device=cuda))
     with pytest.raises(RuntimeError, match="outside its autograd Function"):
+        dt_pre, *rest = mamba_inputs_args((1, 4, 8, 4), torch.float32, cuda)
+        inputs.prepare(dt_pre.requires_grad_(True), *rest)
+    with pytest.raises(RuntimeError, match="outside its autograd Function"):
         rglru.prepare(torch.zeros((1, 4, 2), device=cuda, requires_grad=True), torch.zeros((1, 4, 2), device=cuda))
     with torch.no_grad():
         flash.launch(flash.prepare(q, k, k))
@@ -740,6 +873,14 @@ def test_gradients_through_the_functions_equal_the_plain_versions(cuda):
     want = _grads(ssm_ref.ssm_scan, (dtA, dBx, C), weights)
     for g, ww in zip(got, want):
         torch.testing.assert_close(g, ww, rtol=1e-6, atol=1e-6)
+    args = mamba_inputs_args((2, 21, 40, 16), torch.float32, cuda, seed=9)
+    weights = (r(2, 21, 40, 16), r(2, 21, 40, 16))
+    before = inputs.launches
+    got = _grads(inputs.mamba_inputs, args, weights)
+    assert inputs.launches == before + 1
+    want = _grads(inputs_ref.mamba_inputs, args, weights)
+    for g, ww in zip(got, want):
+        assert g is not None and torch.equal(g, ww)
 
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "recurrentgemma-9b", "falcon-mamba-7b"])

@@ -14,6 +14,7 @@ from repro_torch.engine import Scenario
 from repro_torch.engine.batch import grid_and_tables
 from repro_torch.kernels.ckpt_codec import kernel as codec_kernel, ops as codec_ops, ref as codec_ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as flash_ops, ref as flash_ref
+from repro_torch.kernels.mamba_inputs import kernel as inputs_kernel, ops as inputs_ops, ref as inputs_ref
 from repro_torch.kernels.rglru_scan import kernel as rglru_kernel, ops as rglru_ops, ref as rglru_ref
 from repro_torch.kernels.spot_sweep import kernel as sweep_kernel, ops as sweep_ops, ref as sweep_ref
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel, ops as ssm_ops, ref as ssm_ref
@@ -45,6 +46,14 @@ def codec_case():
             lambda: codec_kernel.quantize(x))
 
 
+def mamba_inputs_case():
+    proj = randn(1, 8, 13, seed=4).bfloat16()
+    args = (randn(1, 8, 6).bfloat16(), randn(6, seed=1).bfloat16(), randn(6, 4, seed=2),
+            randn(1, 8, 6, seed=3).bfloat16(), proj[..., 5:9])
+    return (inputs_kernel, lambda: inputs_ops.mamba_inputs(*args), lambda: inputs_ref.mamba_inputs(*args),
+            lambda: inputs_kernel.mamba_inputs(*args))
+
+
 def sweep_case():
     """The op's per-scheme fields against the plain sweep's raw outputs on
     the same grid (cost is billed on the host from the records either way)."""
@@ -73,6 +82,7 @@ CASES = {
     "ssm_scan": lambda: scan_case(ssm_kernel, ssm_ops, ssm_ref, "ssm_scan"),
     "rglru_scan": lambda: scan_case(rglru_kernel, rglru_ops, rglru_ref, "rglru_scan"),
     "flash_attention": flash_case,
+    "mamba_inputs": mamba_inputs_case,
     "quantize": codec_case,
     "spot_sweep": sweep_case,
 }
